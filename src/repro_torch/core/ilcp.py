@@ -1,0 +1,103 @@
+"""Interleaved LCP (ILCP) index, listing side (counterpart of
+``repro.core.ilcp``).
+
+The ILCP array is stored run-length encoded: run starts ``L`` (a sparse
+bitvector), run head values ``vilcp`` with a leftmost-min sparse-table RMQ,
+and for counting a wavelet matrix over ``vilcp`` plus the value-sorted
+cumulative run lengths (the paper's L').  Document listing is the Fig-1
+recursion, run by the port's kernel (``repro_torch.kernels.ilcp_list``),
+whose wrapper takes its plain batch-lockstep version on CPU tensors; both
+report documents in discovery order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.common import IDX, TensorDataclass, ceil_log2, elias_fano_bits
+from repro_torch.core.suffix import SuffixData
+from repro_torch.kernels.ilcp_list import ilcp_list
+from repro_torch.succinct.bitvector import SparseBitvector, sparse_from_positions
+from repro_torch.succinct.rmq import SparseTableRMQ, rmq_build
+from repro_torch.succinct.wavelet import WaveletMatrix, wm_build
+
+
+@dataclasses.dataclass(frozen=True)
+class ILCPIndex(TensorDataclass):
+    L: SparseBitvector          # run starts (rho ones over n)
+    rmq: SparseTableRMQ         # over VILCP (leftmost-min)
+    wm: WaveletMatrix           # over VILCP values
+    vilcp: torch.Tensor         # int32[rho] run head values
+    run_starts: torch.Tensor    # int32[rho + 1] run boundaries (last = n)
+    clens: torch.Tensor         # int32[rho + 1] cum lengths, (value, pos) order
+    value_run_offset: torch.Tensor  # int32[max_value + 2] first sorted run per value
+    n: int
+    d: int
+    nruns: int
+    max_value: int
+
+    def modeled_bits_listing(self) -> int:
+        """rho lg(n/rho) + O(rho) [L] + 2 rho [RMQ] + d lg(n/d) + O(d) [B]."""
+        rho, n, d = self.nruns, self.n, self.d
+        return (
+            elias_fano_bits(rho, max(n, 1))
+            + 2 * rho + max(1, rho // 4)
+            + elias_fano_bits(d, max(n, 1))
+        )
+
+    def modeled_bits_counting(self) -> int:
+        """rho(lg lambda + 2 lg(n/rho) + O(1)) — Theorem 2."""
+        rho, n = self.nruns, self.n
+        lam = max(2, self.max_value + 1)
+        return rho * ceil_log2(lam) + 2 * elias_fano_bits(rho, max(n, 1)) + 2 * rho
+
+
+def build_ilcp(data: SuffixData) -> ILCPIndex:
+    ilcp = data.ilcp
+    n = int(ilcp.shape[0])
+    if n == 0:
+        raise ValueError("empty collection")
+    dev = ilcp.device
+    change = torch.nonzero(ilcp[1:] != ilcp[:-1]).flatten().to(IDX) + 1
+    run_starts = torch.cat([torch.zeros(1, dtype=IDX, device=dev), change])
+    rho = int(run_starts.shape[0])
+    vilcp = ilcp[run_starts].contiguous()
+    run_bounds = torch.cat([run_starts, torch.full((1,), n, dtype=IDX, device=dev)])
+    lengths = run_bounds[1:] - run_bounds[:-1]
+
+    # value-sorted run lengths (the L' reordering of Section 3.4); a stable
+    # sort by value keeps runs of one value in position order
+    order = torch.sort(vilcp, stable=True).indices
+    clens = torch.zeros(rho + 1, dtype=IDX, device=dev)
+    clens[1:] = torch.cumsum(lengths[order], 0, dtype=IDX)
+    max_value = int(vilcp.max())
+    value_run_offset = torch.searchsorted(
+        vilcp[order].contiguous(),
+        torch.arange(max_value + 2, dtype=IDX, device=dev), out_int32=True,
+    )
+    return ILCPIndex(
+        L=sparse_from_positions(run_starts, n),
+        rmq=rmq_build(vilcp),
+        wm=wm_build(vilcp, max_value + 1),
+        vilcp=vilcp,
+        run_starts=run_bounds,
+        clens=clens,
+        value_run_offset=value_run_offset,
+        n=n,
+        d=data.d,
+        nruns=rho,
+        max_value=max_value,
+    )
+
+
+def ilcp_list_docs_da_planned(index: ILCPIndex, da, lo, hi, max_df: int):
+    """Sada-I-D over a range batch (masked-query contract of
+    repro_torch.core.listing): (docs int32[B, max_df] padded -1, count[B]),
+    documents in discovery order; the same integers as the reference's
+    ``ilcp_list_docs_da_batch`` and ``ilcp_list_docs_da_planned``.  Runs
+    through the listing kernel's wrapper (its plain version on CPU
+    tensors)."""
+    return ilcp_list(index.vilcp, index.rmq.table, index.run_starts, da,
+                     lo.contiguous(), hi.contiguous(), d=index.d, max_df=max_df)

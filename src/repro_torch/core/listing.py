@@ -1,0 +1,53 @@
+"""Brute-L document listing (counterpart of ``repro.core.listing``).
+
+Every ``*_batch`` executor takes int32[B] range arrays where a masked-out
+query is the empty range (0, 0), and returns padded (B, max_df) document
+rows with -1 past each query's count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common import BIG, IDX
+from repro_torch.core.csa import CSA, csa_doc_of, csa_lookup
+
+
+def _distinct_from_window(window, valid, max_df: int):
+    """Row-wise distinct ids of a gathered doc-id window (int32[B, W]) under
+    a validity mask: (docs[B, max_df] ascending, -1 padded; count[B];
+    freqs[B, max_df]).  Writes the reference drops land in one extra
+    column that is sliced off."""
+    B, W = window.shape
+    dev = window.device
+    keys = torch.where(valid, window, BIG)
+    s = torch.sort(keys, dim=1).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    is_doc = s < BIG
+    new_doc = first & is_doc
+    idx_among_new = torch.cumsum(new_doc.to(IDX), 1, dtype=IDX) - 1
+    scatter_idx = torch.where(new_doc & (idx_among_new < max_df), idx_among_new, max_df)
+    docs = torch.full((B, max_df + 1), -1, dtype=IDX, device=dev)
+    docs.scatter_(1, scatter_idx.long(), s)
+    count = torch.clamp(new_doc.sum(1), max=max_df).to(IDX)
+    # frequencies: segment boundaries in the sorted window
+    n_doc = is_doc.sum(1, keepdim=True).to(IDX)
+    starts = n_doc.expand(B, max_df + 2).clone()
+    pos = torch.arange(W, dtype=IDX, device=dev).expand(B, W)
+    starts_idx = torch.where(new_doc & (idx_among_new < max_df + 1), idx_among_new, max_df + 1)
+    starts.scatter_(1, starts_idx.long(), pos)
+    starts = starts[:, : max_df + 1]
+    live = torch.arange(max_df, device=dev)[None, :] < count[:, None]
+    freqs = torch.where(live, starts[:, 1:] - starts[:, :-1], 0).to(IDX)
+    docs = torch.where(live, docs[:, :max_df], -1).to(IDX)
+    return docs, count, freqs
+
+
+def brute_list_csa_batch(csa: CSA, lo, hi, max_occ: int, max_df: int):
+    """Brute-L over a range batch: ids of SA[lo, lo + max_occ) by CSA
+    locate + B-rank, masked against hi: (docs[B, max_df], count[B], freqs)."""
+    idx = lo[:, None] + torch.arange(max_occ, dtype=IDX, device=lo.device)[None, :]
+    valid = idx < hi[:, None]
+    text_pos = csa_lookup(csa, torch.clamp(idx, max=csa.n - 1))
+    return _distinct_from_window(csa_doc_of(csa, text_pos), valid, max_df)

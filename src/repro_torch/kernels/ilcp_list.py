@@ -1,0 +1,173 @@
+"""Fused ILCP document listing: the Hopper kernel, its plain version and
+the wrappers (counterpart of ``repro.kernels.ilcp_list`` and of
+``repro.kernels.ops.runs_of`` / ``ops.ilcp_list``).
+
+The kernel (``csrc/retrieval_kernels.cu``, core in ``retrieval_core.cuh``)
+runs the Fig-1 recursion of ``repro.core.ilcp.ilcp_list_docs`` with one
+thread per query.  The plain version is the reference's batch-lockstep
+POP/SCAN machine (``repro.kernels.ref.ilcp_list_ref``) in PyTorch.  Both
+replay the per-query trajectory (pop order, push filters, truncation) and
+report documents in discovery order, so their integers are identical.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common import IDX, floor_log2_t, searchsorted_i32
+from repro_torch.kernels import _build
+
+
+def stack_cap(max_df: int) -> int:
+    return max_df + 4
+
+
+def pop_cap(max_df: int) -> int:
+    return 2 * max_df + 8
+
+
+def lockstep_iteration_cap(max_df: int) -> int:
+    """Ceiling on lockstep iterations of the plain version (the
+    reference's bound; the loop normally exits on the all-done test)."""
+    return 5 * max_df + 36
+
+
+def runs_of(run_starts: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Run index containing ILCP position ``pos``; ``pos = -1`` maps to
+    run -1."""
+    return searchsorted_i32(run_starts[:-1], pos, right=True) - 1
+
+
+def ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run, hi_run, *,
+                    d: int, max_df: int):
+    """Plain PyTorch version of the kernel: the whole batch advances in
+    lockstep; an iteration either pops an interval and resolves its
+    leftmost-min run (POP) or visits one DA position (SCAN).  ``V`` is a
+    [B, d] bool matrix; writes that the reference drops go to one extra
+    column that is sliced off.  Syncs with the host once per iteration.
+    Returns (docs int32[B, max_df] padded -1, cnt int32[B])."""
+    levels, rho = table.shape
+    n = da.shape[0]
+    B = lo.shape[0]
+    dev = lo.device
+    cap = stack_cap(max_df)
+    iter_cap = pop_cap(max_df)
+    rows = torch.arange(B, device=dev)
+    flat = table.reshape(-1)
+
+    def rmq(a, b):
+        span = torch.clamp(b - a + 1, min=1)
+        k = torch.clamp(floor_log2_t(span), 0, levels - 1)
+        right = torch.maximum(b - (torch.ones_like(k) << k) + 1, a)
+        ia = flat[k * rho + a]
+        ib = flat[k * rho + right]
+        va = vilcp[ia]
+        vb = vilcp[ib]
+        return torch.where((vb < va) | ((vb == va) & (ib < ia)), ib, ia)
+
+    def z():
+        return torch.zeros(B, dtype=IDX, device=dev)
+
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    scan = torch.zeros(B, dtype=torch.bool, device=dev)
+    a, b, i_run, k, j, cnt, pops = z(), z(), z(), z(), z(), z(), z()
+    sp = torch.ones(B, dtype=IDX, device=dev)
+    sa = torch.zeros((B, cap), dtype=IDX, device=dev)
+    sb = torch.zeros((B, cap), dtype=IDX, device=dev)
+    sa[:, 0] = lo_run
+    sb[:, 0] = hi_run
+    V = torch.zeros((B, max(d, 1)), dtype=torch.bool, device=dev)
+    docs = torch.full((B, max_df), -1, dtype=IDX, device=dev)
+
+    it = 0
+    while bool((~done).any()) and it < lockstep_iteration_cap(max_df):
+        # -- POP: take the top interval, resolve its leftmost-min run
+        in_pop = ~done & ~scan
+        can_pop = in_pop & (sp > 0) & (cnt < max_df) & (pops < iter_cap)
+        done = done | (in_pop & ~can_pop)
+        top = torch.clamp(sp - 1, min=0).long()
+        a = torch.where(can_pop, sa[rows, top], a)
+        b = torch.where(can_pop, sb[rows, top], b)
+        sp = torch.where(can_pop, sp - 1, sp)
+        pops = torch.where(can_pop, pops + 1, pops)
+
+        valid = can_pop & (a <= b) & (lo < hi)
+        r = rmq(torch.clamp(a, 0, rho - 1), torch.clamp(b, 0, rho - 1))
+        i_run = torch.where(valid, r, i_run)
+        k = torch.where(valid, torch.maximum(lo, run_starts[torch.clamp(r, 0, rho - 1)]), k)
+        j = torch.where(valid, torch.minimum(hi, run_starts[torch.clamp(r + 1, 0, rho)]), j)
+        scan = scan | valid
+
+        # -- SCAN: visit one DA position of the current run
+        scanning = ~done & scan
+        proc = scanning & (k < j) & (cnt < max_df)
+        g = da[torch.clamp(k, 0, n - 1)]
+        gc = torch.clamp(g, 0, max(d - 1, 0)).long()
+        seen = V[rows, gc]
+        rep = proc & ~seen
+        V[rows, gc] = seen | proc
+        slot = torch.clamp(cnt, max=max_df - 1).long()
+        docs[rows, slot] = torch.where(rep, g, docs[rows, slot])
+        cnt = torch.where(rep, cnt + 1, cnt)
+        k = torch.where(proc, k + 1, k)
+        aborted = proc & seen
+        ended = scanning & (aborted | (k >= j) | (cnt >= max_df))
+
+        # -- push right subrange first, then left; aborts push nothing
+        push = ended & ~aborted
+        for x, y, ok in ((i_run + 1, b, i_run + 1 <= b), (a, i_run - 1, a <= i_run - 1)):
+            do = push & ok & (sp < cap)
+            slot = torch.clamp(sp, max=cap - 1).long()
+            sa[rows, slot] = torch.where(do, x, sa[rows, slot])
+            sb[rows, slot] = torch.where(do, y, sb[rows, slot])
+            sp = torch.where(do, sp + 1, sp)
+        scan = scan & ~ended
+        it += 1
+    return docs, cnt
+
+
+def ilcp_list(vilcp, table, run_starts, da, lo, hi, *, d: int, max_df: int):
+    """Batched ILCP document listing over SA ranges [lo, hi):
+    (docs int32[B, max_df] padded -1 in discovery order, cnt int32[B]).
+
+    On CUDA tensors this launches the kernel (counted in
+    ``ilcp_list.launches``); on CPU tensors it runs the plain version.
+    ``B == 0``, ``max_df <= 0`` and ``d <= 0`` have a closed-form empty
+    answer and launch nothing."""
+    B = lo.shape[0]
+    dev = lo.device
+    if B == 0 or max_df <= 0 or d <= 0:
+        return (torch.full((B, max(max_df, 0)), -1, dtype=IDX, device=dev),
+                torch.zeros(B, dtype=IDX, device=dev))
+    lo_run = runs_of(run_starts, lo)
+    hi_run = runs_of(run_starts, hi - 1)
+    if dev.type != "cuda":
+        return ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run,
+                               hi_run, d=d, max_df=max_df)
+    for name, t, dims in (("vilcp", vilcp, 1), ("table", table, 2),
+                          ("run_starts", run_starts, 1), ("da", da, 1),
+                          ("lo", lo, 1), ("hi", hi, 1)):
+        _build.check_operand(name, t, dims, dev)
+    levels, rho = table.shape
+    if vilcp.shape[0] != rho or run_starts.shape[0] != rho + 1 or hi.shape[0] != B:
+        raise ValueError("ilcp_list: inconsistent operand shapes")
+    cap = stack_cap(max_df)
+    seen_words = -(-d // 32)
+    stka = torch.empty((B, cap), dtype=IDX, device=dev)
+    stkb = torch.empty((B, cap), dtype=IDX, device=dev)
+    seen = torch.zeros((B, seen_words), dtype=IDX, device=dev)
+    docs = torch.empty((B, max_df), dtype=IDX, device=dev)
+    cnt = torch.empty(B, dtype=IDX, device=dev)
+    err = _build.library().rt_ilcp_list(
+        vilcp.data_ptr(), table.data_ptr(), run_starts.data_ptr(),
+        da.data_ptr(), lo.data_ptr(), hi.data_ptr(), lo_run.data_ptr(),
+        hi_run.data_ptr(), stka.data_ptr(), stkb.data_ptr(), seen.data_ptr(),
+        docs.data_ptr(), cnt.data_ptr(), B, levels, rho, int(da.shape[0]), d,
+        max_df, seen_words, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "ilcp_list")
+    ilcp_list.launches += 1
+    return docs, cnt
+
+
+ilcp_list.launches = 0

@@ -1,0 +1,78 @@
+"""Query planner — stage 1 of the batched query engine (counterpart of
+``repro.serve.planner``).
+
+One pass over a padded pattern batch computes (lo, hi) by backward search,
+df by Sadakane counting, occ = hi - lo, and a per-query engine code:
+Brute-L when occ/df is below the threshold, PDL otherwise (Section 6.2.2).
+The comparison is made in float32, as the reference makes it.
+
+Engine codes are part of the serving ABI: 0 = empty range, 1 = Brute-L,
+2 = ILCP (Sada-I-D), 3 = PDL.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.common import IDX
+from repro_torch.core.csa import CSA, csa_search_planned
+from repro_torch.core.sada import SadaCount, sada_count_batch
+
+ENGINE_EMPTY = 0
+ENGINE_BRUTE = 1
+ENGINE_ILCP = 2
+ENGINE_PDL = 3
+
+#: public engine names -> forced-engine codes (-1 lets the planner decide)
+ENGINE_CODES = {
+    "auto": -1,
+    "brute": ENGINE_BRUTE,
+    "ilcp": ENGINE_ILCP,
+    "pdl": ENGINE_PDL,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """Per-query execution plan (all int32[B] tensors)."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+    occ: torch.Tensor
+    df: torch.Tensor
+    engine: torch.Tensor
+
+
+def plan_queries(
+    csa: CSA,
+    sada: SadaCount,
+    patterns: torch.Tensor,     # int32[B, max_m] padded patterns
+    lengths: torch.Tensor,      # int32[B] true lengths (0 = padding row)
+    occ_df_threshold: float,
+    forced_engine: int,         # -1 = auto dispatch
+) -> QueryPlan:
+    """Ranges + df + occ + engine assignment.  Rows of length 0 and
+    patterns with no occurrences get ``ENGINE_EMPTY``."""
+    lo, hi = csa_search_planned(csa, patterns, lengths)
+    hi = torch.where(lengths > 0, hi, lo)  # padding rows: empty range
+    occ = hi - lo
+    df = sada_count_batch(sada, lo, hi)
+
+    thresh = torch.tensor(occ_df_threshold, dtype=torch.float32, device=lo.device)
+    auto = torch.where(
+        occ.to(torch.float32) < thresh * torch.clamp(df, min=1).to(torch.float32),
+        ENGINE_BRUTE,
+        ENGINE_PDL,
+    )
+    engine = auto if forced_engine < 0 else torch.full_like(lo, forced_engine)
+    engine = torch.where(occ > 0, engine, ENGINE_EMPTY).to(IDX)
+    return QueryPlan(lo=lo, hi=hi, occ=occ, df=df, engine=engine)
+
+
+def masked_ranges(plan: QueryPlan, engine_code: int):
+    """(lo, hi) with every query not assigned to ``engine_code`` collapsed
+    to the empty range (0, 0)."""
+    sel = plan.engine == engine_code
+    return torch.where(sel, plan.lo, 0), torch.where(sel, plan.hi, 0)

@@ -1,0 +1,250 @@
+"""Batched document-retrieval serving: ``plan``, ``count`` and
+``list_docs`` (counterpart of ``repro.serve.retrieval``).
+
+One service object owns the index stack over a collection: CSA, ILCP,
+PDL (listing mode), Sadakane counting (sparse) and the document array.
+A query batch runs in three stages:
+
+1. **Planner** (``repro_torch.serve.planner``): backward search through
+   the port's kernel, Sada df, occ and a per-query engine code.
+2. **Masked batch executors**: Brute-L, ILCP (through the port's listing
+   kernel) and PDL each run over the whole batch with the queries not
+   assigned to them collapsed to empty ranges; the rows are selected by
+   engine and sorted.
+3. **Shape buckets**: batches pad to powers of two and pattern lengths to
+   multiples of 8, as in the reference; the Brute-L window is sized per
+   bucket from the planner's occ statistics and only ever grows.
+
+Not in this port yet: CUDA-graph capture of the bucketed programs (and so
+``compile_counts``), fault hooks, ``engine="reference"``, ``count_ilcp``,
+``topk``, ``tfidf``, sharding (``mesh``) and build-time validation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.common import BIG, IDX, as_i32, resolve_device
+from repro_torch.core.csa import CSA, build_csa
+from repro_torch.core.ilcp import ILCPIndex, build_ilcp, ilcp_list_docs_da_planned
+from repro_torch.core.listing import brute_list_csa_batch
+from repro_torch.core.pdl import PDLIndex, build_pdl, pdl_list_docs_batch
+from repro_torch.core.sada import SadaCount, build_sada
+from repro_torch.core.suffix import Collection, build_suffix_data
+from repro_torch.data.collections import normalize_patterns, pad_patterns
+from repro_torch.serve.planner import (
+    ENGINE_BRUTE,
+    ENGINE_CODES,
+    ENGINE_EMPTY,
+    ENGINE_ILCP,
+    ENGINE_PDL,
+    masked_ranges,
+    plan_queries,
+)
+
+# ---------------------------------------------------------------------------
+# Shape buckets
+# ---------------------------------------------------------------------------
+
+
+def _bucket_batch(b: int) -> int:
+    """Round a batch size up to the next power of two (>= 1)."""
+    return 1 if b <= 1 else 1 << (b - 1).bit_length()
+
+
+def _bucket_len(m: int) -> int:
+    """Round a pattern length up to a multiple of 8 (>= 8)."""
+    return max(8, -(-m // 8) * 8)
+
+
+#: smallest dispatch-aware Brute-L window; windows grow in powers of two
+#: up to the endpoint's ``max_buf``
+BRUTE_WINDOW_FLOOR = 32
+
+#: largest servable pattern length; longer patterns normalize to empty
+MAX_PATTERN_LEN = 4096
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
+def _sorted_rows(docs):
+    """Canonical listing layout: ascending doc ids, -1 padding at the end."""
+    s = torch.sort(torch.where(docs < 0, BIG, docs), dim=1).values
+    return torch.where(s == BIG, -1, s).to(IDX)
+
+
+def _list_program(max_df, brute_win, max_buf,
+                  csa, ilcp, pdl, da, sada, patterns, lengths, threshold, forced):
+    """list_docs for one padded batch: plan, run every engine masked,
+    select by engine, sort the rows."""
+    plan = plan_queries(csa, sada, patterns, lengths, threshold, forced)
+    bl, bh = masked_ranges(plan, ENGINE_BRUTE)
+    docs_b, cnt_b, _ = brute_list_csa_batch(csa, bl, bh, brute_win, max_df)
+    il, ih = masked_ranges(plan, ENGINE_ILCP)
+    docs_i, cnt_i = ilcp_list_docs_da_planned(ilcp, da, il, ih, max_df)
+    pl, ph = masked_ranges(plan, ENGINE_PDL)
+    docs_p, cnt_p = pdl_list_docs_batch(pdl, csa, pl, ph, max_df, max_buf)
+
+    eng = plan.engine[:, None]
+    docs = torch.where(eng == ENGINE_BRUTE, docs_b,
+                       torch.where(eng == ENGINE_ILCP, docs_i, docs_p))
+    docs = torch.where(eng == ENGINE_EMPTY, -1, docs)
+    cnt = torch.where(plan.engine == ENGINE_BRUTE, cnt_b,
+                      torch.where(plan.engine == ENGINE_ILCP, cnt_i, cnt_p))
+    cnt = torch.where(plan.engine == ENGINE_EMPTY, 0, cnt).to(IDX)
+    return _sorted_rows(docs), cnt, plan
+
+
+@dataclasses.dataclass
+class RetrievalService:
+    coll: Collection
+    csa: CSA
+    ilcp: ILCPIndex
+    pdl_list: PDLIndex
+    sada: SadaCount
+    da: torch.Tensor
+    occ_df_threshold: float = 4.0     # paper: brute wins when occ/df < ~4
+    brute_window: int | None = None   # None = size per bucket from occ stats
+    _brute_windows: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: host-clock seconds of each build stage (suffix, csa, ilcp, pdl, sada)
+    build_seconds: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.da.device
+
+    # -- construction --------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls, coll: Collection, block_size: int = 64, beta: float = 16.0,
+        sada_variant: str = "sparse", sample_rate: int = 16,
+        brute_window: int | None = None,
+        device="cuda",
+    ):
+        """Build the index stack on ``device`` (the card unless the caller
+        asks for the CPU).  Queries go through the kernel wrappers, which
+        run the kernels' plain versions only on CPU tensors."""
+        dev = resolve_device(device)
+        seconds = {}
+
+        def timed(name, fn, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds[name] = time.perf_counter() - t0
+            return out
+
+        data = timed("suffix", build_suffix_data, coll, dev)
+        return cls(
+            coll=coll,
+            csa=timed("csa", build_csa, data, sample_rate=sample_rate),
+            ilcp=timed("ilcp", build_ilcp, data),
+            pdl_list=timed("pdl", build_pdl, data, block_size=block_size, beta=beta,
+                           mode="list"),
+            sada=timed("sada", build_sada, data, sada_variant),
+            da=data.da,
+            brute_window=brute_window,
+            build_seconds=seconds,
+        )
+
+    # -- batching ------------------------------------------------------------
+
+    def _pad_batch(self, patterns):
+        """Dense [B_bucket, m_bucket] pattern batch + lengths on the device
+        + true size.  Every pattern passes ``normalize_patterns`` first."""
+        patterns = normalize_patterns(
+            patterns, sigma=self.coll.sigma, max_len=MAX_PATTERN_LEN
+        )
+        pats, lens = pad_patterns(patterns)
+        B, m = pats.shape
+        Bb, mb = _bucket_batch(B), _bucket_len(m)
+        out = np.zeros((Bb, mb), np.int32)
+        out[:B, :m] = pats
+        lns = np.zeros(Bb, np.int32)
+        lns[:B] = lens
+        return as_i32(out, self.device), as_i32(lns, self.device), B
+
+    def _brute_window_for(self, kind: str, bucket_key: tuple, patterns,
+                          engine: str, max_buf: int) -> int:
+        """Dispatch-aware Brute-L window: the power-of-two cover of the
+        largest occ among brute-assigned queries (from a plan pass of its
+        own), clamped to [BRUTE_WINDOW_FLOOR, max_buf], grow-only per
+        bucket.  Results do not depend on it: the executor masks the
+        window against each query's occ."""
+        if self.brute_window is not None:
+            return min(self.brute_window, max_buf)
+        plan = self.plan(patterns, engine)
+        occ = plan["occ"][plan["engine"] == ENGINE_BRUTE]
+        needed = int(occ.max()) if occ.size else 0
+        win = min(max(_pow2_ceil(needed), BRUTE_WINDOW_FLOOR), max_buf)
+        key = (kind, bucket_key)
+        win = max(win, self._brute_windows.get(key, 0))
+        self._brute_windows[key] = win
+        return win
+
+    # -- endpoints -----------------------------------------------------------
+
+    def plan(self, patterns, engine: str = "auto"):
+        """Query plan for a pattern batch: host arrays (lo, hi, occ, df,
+        engine), trimmed to the true batch size."""
+        pats, lens, B = self._pad_batch(patterns)
+        plan = plan_queries(
+            self.csa, self.sada, pats, lens, self.occ_df_threshold,
+            ENGINE_CODES[engine],
+        )
+        return {
+            name: getattr(plan, name)[:B].cpu().numpy()
+            for name in ("lo", "hi", "occ", "df", "engine")
+        }
+
+    def count(self, patterns, engine: str = "auto"):
+        """df per pattern (Sadakane counting)."""
+        return self.plan(patterns, engine)["df"]
+
+    def list_docs_arrays(self, patterns, max_df: int = 256, engine: str = "auto",
+                         max_buf: int = 4096):
+        """Array-level listing endpoint: (docs int32[B, max_df] ascending,
+        -1 padded, counts int32[B]) as host arrays."""
+        if not len(patterns):
+            return np.zeros((0, max_df), np.int32), np.zeros(0, np.int32)
+        pats, lens, B = self._pad_batch(patterns)
+        win = self._brute_window_for(
+            "list", (tuple(pats.shape), max_df, max_buf), patterns, engine, max_buf
+        )
+        docs, cnt, _ = _list_program(
+            max_df, win, max_buf, self.csa, self.ilcp, self.pdl_list, self.da, self.sada,
+            pats, lens, self.occ_df_threshold, ENGINE_CODES[engine],
+        )
+        return docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()
+
+    def list_docs(self, patterns, max_df: int = 256, engine: str = "auto",
+                  max_buf: int = 4096):
+        """Document listing with the paper's df/occ dispatch policy;
+        ``engine``: "auto" | "brute" | "ilcp" | "pdl"."""
+        docs, cnt = self.list_docs_arrays(patterns, max_df, engine, max_buf)
+        return [docs[i, : cnt[i]].tolist() for i in range(len(cnt))]
+
+    # -- introspection --------------------------------------------------------
+
+    def space_report(self) -> dict:
+        """Bits-per-character accounting in the paper's units."""
+        n = self.coll.n
+        return {
+            "n": n,
+            "d": self.coll.d,
+            "csa_rlcsa_bpc": self.csa.modeled_bits_rlcsa() / n,
+            "ilcp_listing_bpc": self.ilcp.modeled_bits_listing() / n,
+            "ilcp_counting_bpc": self.ilcp.modeled_bits_counting() / n,
+            "pdl_list_bpc": self.pdl_list.modeled_bits() / n,
+            "sada_bpc": self.sada.modeled_bits() / n,
+            "bwt_runs": self.csa.bwt_runs,
+            "ilcp_runs": self.ilcp.nruns,
+        }

@@ -1,0 +1,122 @@
+"""Wavelet matrix over small-alphabet sequences (counterpart of
+``repro.succinct.wavelet``).
+
+Built on the device: one stable partition and one packed bitvector per
+level.  ``sym_starts[c]`` is the descent of position 0 along c's bits, so
+``rank_c(S, i) = descend(i) - sym_starts[c]`` costs one rank per level.
+Conventions: sequence values in [0, sigma); ranks half-open.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.common import IDX, TensorDataclass, ceil_log2, rank1_words, u32
+from repro_torch.succinct.bitvector import plain_from_bits
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveletMatrix(TensorDataclass):
+    """words:       int32[L, W+1] bit patterns; level 0 tests the MSB
+    ones_prefix: int32[L, W+1]
+    zcount:      int32[L]      zeros at each level
+    sym_starts:  int32[sigma]  block start of each symbol at the bottom
+    """
+
+    words: torch.Tensor
+    ones_prefix: torch.Tensor
+    zcount: torch.Tensor
+    sym_starts: torch.Tensor
+    n: int
+    sigma: int
+    levels: int
+
+    def rank1_level(self, lvl: int, i):
+        return rank1_words(self.words[lvl], self.ones_prefix[lvl], i)
+
+    def bit_of(self, c, lvl: int):
+        return (c >> (self.levels - 1 - lvl)) & 1
+
+
+def wm_build(seq: torch.Tensor, sigma: int | None = None) -> WaveletMatrix:
+    seq = seq.to(torch.int64)
+    n = int(seq.shape[0])
+    if sigma is None:
+        sigma = int(seq.max()) + 1 if n else 1
+    levels = max(1, ceil_log2(max(sigma, 2)))
+    cur = seq
+    words_l, prefix_l, zc = [], [], []
+    for lvl in range(levels):
+        bits = (cur >> (levels - 1 - lvl)) & 1
+        bv = plain_from_bits(bits)
+        words_l.append(bv.words)
+        prefix_l.append(bv.ones_prefix)
+        zc.append(n - bv.m)
+        cur = torch.cat([cur[bits == 0], cur[bits == 1]])  # stable partition
+    words = torch.stack(words_l)
+    prefix = torch.stack(prefix_l)
+
+    # per-symbol block starts: descend position 0 for every c at once
+    syms = torch.arange(sigma, device=seq.device)
+    s = torch.zeros(sigma, dtype=IDX, device=seq.device)
+    for lvl in range(levels):
+        bit = (syms >> (levels - 1 - lvl)) & 1
+        r1 = rank1_words(words[lvl], prefix[lvl], s)
+        s = torch.where(bit == 0, s - r1, zc[lvl] + r1)
+    return WaveletMatrix(
+        words=words,
+        ones_prefix=prefix,
+        zcount=torch.tensor(zc, dtype=IDX, device=seq.device),
+        sym_starts=s.to(IDX),
+        n=n,
+        sigma=int(sigma),
+        levels=levels,
+    )
+
+
+def wm_descend(wm: WaveletMatrix, c, i):
+    """Descend position(s) ``i`` along symbol ``c``'s bit path."""
+    for lvl in range(wm.levels):
+        r1 = wm.rank1_level(lvl, i)
+        i = torch.where(wm.bit_of(c, lvl) == 0, i - r1, wm.zcount[lvl] + r1)
+    return i
+
+
+def wm_rank(wm: WaveletMatrix, c, i):
+    """rank_c(S, i): occurrences of symbol c in S[0, i), elementwise."""
+    return (wm_descend(wm, c, i) - wm.sym_starts[c]).to(IDX)
+
+
+def wm_rank_pair_batch(wm: WaveletMatrix, c, lo, hi):
+    """(rank_c(S, lo), rank_c(S, hi)): both positions ride one descent
+    along c's bit path.  c must be in [0, sigma)."""
+    for lvl in range(wm.levels):
+        bit = wm.bit_of(c, lvl)
+        z = wm.zcount[lvl]
+        r1p = wm.rank1_level(lvl, lo)
+        r1q = wm.rank1_level(lvl, hi)
+        lo = torch.where(bit == 0, lo - r1p, z + r1p)
+        hi = torch.where(bit == 0, hi - r1q, z + r1q)
+    start = wm.sym_starts[c]
+    return (lo - start).to(IDX), (hi - start).to(IDX)
+
+
+def wm_access(wm: WaveletMatrix, i):
+    """S[i], elementwise."""
+    pos = i
+    val = torch.zeros_like(i)
+    for lvl in range(wm.levels):
+        p64 = pos.to(torch.int64)
+        bit = ((u32(wm.words[lvl][p64 >> 5]) >> (p64 & 31)) & 1).to(IDX)
+        r1 = wm.rank1_level(lvl, pos)
+        pos = torch.where(bit == 0, pos - r1, wm.zcount[lvl] + r1)
+        val = (val << 1) | bit
+    return val
+
+
+def wm_modeled_bits(wm: WaveletMatrix) -> int:
+    """n*ceil(lg sigma) + o(...) — plain-bitvector levels."""
+    per_level = wm.n + max(1, wm.n // 8)
+    return wm.levels * per_level + 64 * wm.levels
