@@ -6,19 +6,36 @@ Run from the repository root with no arguments:
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. Device and build: the card's name and power limit, then the two CUDA
+1. Device and build: the card's name and power limit, then the four CUDA
    kernels built from ``src/repro_torch/csrc`` with nvcc for sm_90a.
 2. Full path: ``RetrievalService`` built on the card for dna-p001 at
-   scale 3.2 (n = 1,024,320, d = 320); ``plan``, ``count`` and
-   ``list_docs`` (engines auto, ilcp, brute, pdl) on batches of 32 patterns,
-   held against a host oracle from the port's own document array, with the
-   kernel launch counts each endpoint must make.
+   scale 3.2 (n = 1,024,320, d = 320) without the top-k PDL; ``plan``,
+   ``count`` and ``list_docs`` (engines auto, ilcp, brute, pdl) on batches
+   of 32 patterns, held against a host oracle from the port's own document
+   array, with the kernel launch counts each endpoint must make.
+2b. Top-k and tf-idf on a ``RetrievalService`` with both PDLs for
+   dna-p001 at scale 1.6 (n = 256,160, d = 160; the top-k PDL's host
+   build, which keeps every internal node's list, does not finish at
+   scale 3.2 within the run's time), on batches of 32: ``topk`` (k = 10,
+   engines auto, brute, pdl, ilcp, and auto with a pinned brute window)
+   held to a host (tf desc, id asc) oracle over DA[lo:hi], exact wherever
+   the candidate buffer does not truncate the row (the oracle replays the
+   PDL cover to count the entries the gather takes); ``tfidf`` with two
+   terms per query as the serving CLI builds them, ranked-AND and
+   ranked-OR, held to a host float32 oracle with the same fold within
+   2 ulp.  Launch counts, per-batch latencies and each batch's engine mix.
 3. Large index, no PDL: suffix data, CSA, Sada and ILCP on the card for
    dna-p001 at scale 12.8 (n ~ 16.4M, d = 1,280); ``plan_queries`` and
    ``ilcp_list_docs_da_planned`` on 1,024 patterns in batches of 128.
+3b. Primitives on the large index: ``wm_rank_batch`` on the CSA's wavelet
+   for the patterns' symbols and positions (plus edge positions) against a
+   host count over the BWT, one rank launch per level; the kernel-routed
+   ``ilcp_list_docs_da_batch`` against the fused listing kernel bit for bit,
+   one RMQ launch per lockstep iteration (counted by a host replay).
 4. Kernels against their plain PyTorch versions on the card, on the real
    index arrays of phases 2 and 3 and on edge inputs: outputs must be
-   bit-identical.  Times with CUDA events after a warm-up.
+   bit-identical.  Times with CUDA events after a warm-up, device times
+   from the profiler; rank and RMQ also on one stream of 2^22 queries.
 
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -44,9 +61,13 @@ ALU_OPS_PER_S = 67e12
 
 MAX_DF = 256
 MAX_BUF = 4096
-FULL_SCALE = 3.2     # dna-p001 at n = 1,024,320, with PDL
+FULL_SCALE = 3.2     # dna-p001 at n = 1,024,320, with the listing PDL
+TOPK_SCALE = 1.6     # dna-p001 at n = 256,160, with both PDLs
 LARGE_SCALE = 12.8   # dna-p001 at n ~ 16.4M, no PDL
 LARGE_QUERIES = 1024
+TOPK_K = 10
+TFIDF_MAX_BUF = 2048   # the serving CLI's tf-idf buffer (max_terms = 4)
+STREAM_Q = 1 << 22     # queries of the rank/RMQ stream timings
 
 
 def log(*a):
@@ -158,18 +179,22 @@ def host_backward_search(words, prefix, zcount, base, pats, lens, n, sigma):
 
 def host_ilcp_list(vilcp, table, run_starts, da, lo, hi, d, max_df):
     """The Fig-1 recursion per query in Python (the reference's trajectory):
-    (docs rows in discovery order, counts, pops, DA positions scanned)."""
+    (docs rows in discovery order, counts, pops, DA positions scanned, and
+    per query the iterations the batch-lockstep machine spends on it: one
+    per pop, or one per DA position a pop's run visits, plus the one in
+    which it finds nothing left to pop)."""
     levels, rho = table.shape
     cap, max_pops = max_df + 4, 2 * max_df + 8
     starts = run_starts[:-1]
-    rows, cnts, pops_total, scanned = [], [], 0, 0
+    rows, cnts, pops_total, scanned, iters = [], [], 0, 0, []
     for a0, b0 in zip(lo.tolist(), hi.tolist()):
         stack = [(int(np.searchsorted(starts, a0, "right")) - 1,
                   int(np.searchsorted(starts, b0 - 1, "right")) - 1)]
-        seen, out, pops = set(), [], 0
+        seen, out, pops, steps = set(), [], 0, 1
         while stack and len(out) < max_df and pops < max_pops:
             a, b = stack.pop()
             pops += 1
+            steps += 1
             if a > b or a0 >= b0:
                 continue
             a, b = min(max(a, 0), rho - 1), min(max(b, 0), rho - 1)
@@ -177,16 +202,18 @@ def host_ilcp_list(vilcp, table, run_starts, da, lo, hi, d, max_df):
             ia, ib = int(table[k, a]), int(table[k, max(b - (1 << k) + 1, a)])
             r = ib if (vilcp[ib] < vilcp[ia] or (vilcp[ib] == vilcp[ia] and ib < ia)) else ia
             i, j = max(a0, int(run_starts[r])), min(b0, int(run_starts[r + 1]))
-            aborted = False
+            aborted, visits = False, 0
             while i < j and len(out) < max_df:
                 g = int(da[i])
                 scanned += 1
+                visits += 1
                 i += 1
                 if g in seen:
                     aborted = True
                     break
                 seen.add(g)
                 out.append(g)
+            steps += max(visits, 1) - 1
             if aborted:
                 continue
             if r + 1 <= b and len(stack) < cap:
@@ -194,10 +221,11 @@ def host_ilcp_list(vilcp, table, run_starts, da, lo, hi, d, max_df):
             if a <= r - 1 and len(stack) < cap:
                 stack.append((a, r - 1))
         pops_total += pops
+        iters.append(steps)
         cnts.append(len(out))
         rows.append(out + [-1] * (max_df - len(out)))
     return (np.asarray(rows, np.int32).reshape(len(cnts), max_df),
-            np.asarray(cnts, np.int32), pops_total, scanned)
+            np.asarray(cnts, np.int32), pops_total, scanned, iters)
 
 
 def check_listing(docs, cnt, lo, hi, da, max_df, max_buf=None, sorted_rows=True):
@@ -256,7 +284,7 @@ def phase_full_path(dev, bs, il):
     coll = generate(paperlike_collections(scale=FULL_SCALE)["dna-p001"])
     log(f"[full] dna-p001 x{FULL_SCALE}: n={coll.n} d={coll.d} sigma={coll.sigma}")
     t0 = time.perf_counter()
-    svc = RetrievalService.build(coll, block_size=64, beta=16.0, device=dev)
+    svc = RetrievalService.build(coll, block_size=64, beta=16.0, topk_index=False, device=dev)
     build_s = time.perf_counter() - t0
     log(f"[full] service build {build_s:.2f} s: "
         + ", ".join(f"{k} {v:.2f}" for k, v in svc.build_seconds.items()))
@@ -332,6 +360,296 @@ def phase_full_path(dev, bs, il):
     return svc, batches, launches
 
 
+def host_topk(da, lo, hi, k):
+    """Top-k documents of DA[lo:hi] by (tf desc, id asc), and every
+    document's tf."""
+    docs, tf = np.unique(da[lo:hi], return_counts=True)
+    order = np.lexsort((docs, -tf))
+    return docs[order][:k], tf[order][:k], dict(zip(docs.tolist(), tf.tolist()))
+
+
+def pdl_gather_entries(pdl, lo, hi, max_cover=1024):
+    """Host replay of the PDL gather's cover of SA[lo, hi): the entries it
+    takes (partial blocks one per position, each full cover node its stored
+    list) and whether ``max_cover`` cut the cover short."""
+    L, ls = pdl["L"], pdl["leaf_starts"]
+    ln = int(np.searchsorted(ls[:L], lo, "left"))
+    rn = int(np.searchsorted(ls[1:], hi, "right")) - 1
+    head_hi = min(hi, int(ls[min(ln, L)]))
+    tail_lo = max(int(ls[min(max(rn + 1, ln), L)]), head_hi)
+    entries = max(head_hi - lo, 0) + max(hi - tail_lo, 0)
+    i, covers = ln, 0
+    while i <= rn and covers < max_cover:
+        node, nxt = i, i + 1
+        while pdl["is_first_child"][node] and pdl["parent_of"][node] >= 0:
+            par = int(pdl["parent_of"][node])
+            if pdl["next_leaf"][par] - 1 > rn:
+                break
+            node, nxt = L + par, int(pdl["next_leaf"][par])
+        entries += int(pdl["doc_base"][node + 1] - pdl["doc_base"][node])
+        i, covers = nxt, covers + 1
+    return entries, i <= rn
+
+
+def pdl_host_arrays(pdl):
+    out = {f: getattr(pdl, f).cpu().numpy() for f in
+           ("leaf_starts", "is_first_child", "parent_of", "next_leaf", "doc_base")}
+    out["L"] = pdl.L
+    return out
+
+
+def check_ranked_order(keys, docs, what):
+    """(key desc, id asc) order of a row: keys non-increasing, ties by id."""
+    for x in range(len(docs) - 1):
+        require(keys[x] > keys[x + 1] or (keys[x] == keys[x + 1] and docs[x] < docs[x + 1]),
+                (what, "row out of (desc, id asc) order"))
+
+
+def check_topk(docs, tfs, lo, hi, codes, da, pdl, max_df, k):
+    """Each row against the host oracle: exact where the engine's buffer
+    holds the row; otherwise every document from DA[lo:hi] with a tf no
+    larger than its true tf, in (tf desc, id asc) order.  Returns the number
+    of exact rows."""
+    from repro_torch.serve.planner import ENGINE_BRUTE
+
+    exact_rows = 0
+    for r in range(len(codes)):
+        want_d, want_t, truth = host_topk(da, lo[r], hi[r], k)
+        got = docs[r][docs[r] >= 0]
+        nout = len(got)
+        require(np.all(docs[r, nout:] == -1) and np.all(tfs[r, nout:] == 0), (r, "topk padding"))
+        # Brute-L's window covers occ positions up to max_buf; the PDL gather
+        # takes its cover's entries into max_buf slots unless the cover is cut
+        if codes[r] == ENGINE_BRUTE:
+            exact = hi[r] - lo[r] <= MAX_BUF and len(truth) <= max_df
+        else:
+            entries, cut = pdl_gather_entries(pdl, int(lo[r]), int(hi[r]))
+            exact = entries <= MAX_BUF and not cut
+        if exact:
+            require(np.array_equal(got, want_d) and np.array_equal(tfs[r, :nout], want_t),
+                    (r, "topk row != host (tf desc, id asc) oracle"))
+            exact_rows += 1
+        else:
+            require(len(set(got.tolist())) == nout, (r, "duplicate documents"))
+            for g, t in zip(got.tolist(), tfs[r, :nout].tolist()):
+                require(g in truth and 1 <= t <= truth[g], (r, "tf above the true tf"))
+            check_ranked_order(tfs[r, :nout], got, r)
+    return exact_rows
+
+
+def ulps(a, b):
+    """ulp distance of non-negative float32 values."""
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - b)
+
+
+def host_tfidf(da, d, ranges, conjunctive, k):
+    """Host float32 oracle: weights lg(d / max(df, 1)) (correctly rounded
+    from float64), scores folded term by term in slot order, a multiply
+    then an add; (ranked top-k docs, every candidate's score, the
+    candidates)."""
+    lists = [host_topk(da, lo, hi, None)[2] for lo, hi in ranges]
+    w = [np.float32(np.log2(np.float64(np.float32(d) / np.float32(max(len(t), 1)))))
+         for t in lists]
+    cands = set().union(*lists) if lists else set()
+    if conjunctive:
+        cands = {x for x in cands if all(x in t for t in lists)}
+    score = {}
+    for x in cands:
+        s = np.float32(0.0)
+        for t, wt in zip(lists, w):
+            s = np.float32(s + np.float32(np.float32(t.get(x, 0)) * wt))
+        score[x] = s
+    ranked = sorted(cands, key=lambda x: (-score[x], x))[:k]
+    return ranked, score, cands
+
+
+def check_tfidf(docs, scores, term_ranges, da, d, pdl, conjunctive, k):
+    """Each query against ``host_tfidf``: where no term's gather truncates,
+    scores within 2 ulp and ids exact except among candidates whose oracle
+    scores lie within 2 ulp; otherwise every document a true candidate with
+    a score no higher than its true one, in (score desc, id asc) order.
+    Returns (exact queries, the largest ulp distance seen)."""
+    exact_q, worst = 0, 0
+    for q, ranges in enumerate(term_ranges):
+        ranked, score, cands = host_tfidf(da, d, ranges, conjunctive, k)
+        got = docs[q][docs[q] >= 0]
+        gs = scores[q, : len(got)]
+        require(np.all(docs[q, len(got):] == -1), (q, "tfidf padding"))
+        cover = [pdl_gather_entries(pdl, lo, hi) for lo, hi in ranges]
+        if all(entries <= TFIDF_MAX_BUF and not cut for entries, cut in cover):
+            require(len(got) == len(ranked), (q, "tfidf row length"))
+            for g, s, want in zip(got.tolist(), gs, ranked):
+                dist = int(ulps(s, score[want]))
+                worst = max(worst, dist)
+                require(dist <= 2, (q, "tfidf score beyond 2 ulp", s, score[want]))
+                require(g == want or (g in score and ulps(score[g], score[want]) <= 2),
+                        (q, "tfidf ranking differs outside a 2-ulp tie"))
+            exact_q += 1
+        else:
+            require(len(set(got.tolist())) == len(got), (q, "duplicate documents"))
+            for g, s in zip(got.tolist(), gs):
+                require(g in cands and (s <= score[g] or ulps(s, score[g]) <= 2),
+                        (q, "tfidf score above the true score"))
+            check_ranked_order(gs, got, q)
+    return exact_q, worst
+
+
+def phase_topk_tfidf(dev, kernels):
+    """Phase 2b: topk and tfidf on a service with both PDLs."""
+    from repro_torch.data.collections import (
+        generate, paperlike_collections, random_substring_patterns,
+    )
+    from repro_torch.serve.planner import ENGINE_CODES
+    from repro_torch.serve.retrieval import RetrievalService
+
+    coll = generate(paperlike_collections(scale=TOPK_SCALE)["dna-p001"])
+    log(f"[topk] dna-p001 x{TOPK_SCALE}: n={coll.n} d={coll.d} sigma={coll.sigma}")
+    t0 = time.perf_counter()
+    svc = RetrievalService.build(coll, block_size=64, beta=16.0, device=dev)
+    log(f"[topk] service build {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in svc.build_seconds.items())
+        + f"; top-k PDL: {svc.pdl_topk.L} leaves, {svc.pdl_topk.I} internal nodes, "
+        f"{svc.pdl_topk.total_docs_stored} stored entries, {svc.pdl_topk.nrules} rules")
+    log(f"[topk] space report {svc.space_report()}")
+    pats = random_substring_patterns(coll, 2000, 6, 128, device=dev)
+    require(len(pats) >= 32, "workload generation produced too few patterns")
+    batches = [pats[i:i + 32] for i in range(0, len(pats), 32)]
+    bs = kernels[0]
+    da = svc.da.cpu().numpy()
+    d = svc.coll.d
+    pdl = pdl_host_arrays(svc.pdl_topk)
+    max_df = min(d + 1, MAX_BUF)
+    rng = np.random.default_rng(0)
+    # tf-idf queries as the serving CLI builds them: the pattern and a
+    # second one drawn from the workload
+    tf_queries = [[[p, pats[int(rng.integers(0, len(pats)))]] for p in batch]
+                  for batch in batches]
+    # ranges, outside the counted run
+    plans = [svc.plan(b) for b in batches]
+    term_plans = [svc.plan([t for qry in qs for t in qry]) for qs in tf_queries]
+
+    lat, mix, exact = {}, [], {"topk": 0, "tfidf": 0}
+    worst_ulp = 0
+    reset_counts(kernels)  # the topk/tfidf path's run starts here
+    for bi, batch in enumerate(batches):
+        plan = plans[bi]
+        lo, hi = plan["lo"], plan["hi"]
+        mix.append({name: int((plan["engine"] == code).sum())
+                    for name, code in (("brute", 1), ("ilcp", 2), ("pdl", 3))})
+
+        def call(name, fn, *a, **kw):
+            before = [k.launches for k in kernels]
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            lat.setdefault(name, []).append(time.perf_counter() - t)
+            return out, tuple(k.launches - b for k, b in zip(kernels, before))
+
+        for engine, pinned in (("auto", False), ("brute", False), ("pdl", False),
+                               ("ilcp", False), ("auto", True)):
+            svc.brute_window = MAX_BUF if pinned else None
+            name = f"topk[{engine}{',pinned' if pinned else ''}]"
+            (docs, tfs), delta = call(name, svc.topk_arrays, batch, k=TOPK_K, engine=engine,
+                                      max_buf=MAX_BUF)
+            svc.brute_window = None
+            require(delta == ((1 if pinned else 2), 0, 0, 0), (name, "launches", delta))
+            require(docs.shape == tfs.shape == (len(batch), TOPK_K) and docs.dtype == np.int32)
+            codes = plan["engine"] if engine == "auto" else [ENGINE_CODES[engine]] * len(batch)
+            exact["topk"] += check_topk(docs, tfs, lo, hi, codes, da, pdl, max_df, TOPK_K)
+
+        tlo, thi = term_plans[bi]["lo"], term_plans[bi]["hi"]
+        ranges = [list(zip(tlo[2 * q:2 * q + 2].tolist(), thi[2 * q:2 * q + 2].tolist()))
+                  for q in range(len(batch))]
+        for conj in (False, True):
+            name = f"tfidf[{'and' if conj else 'or'}]"
+            (docs, scores), delta = call(name, svc.tfidf_arrays, tf_queries[bi], k=TOPK_K,
+                                         conjunctive=conj, max_terms=4, max_buf=TFIDF_MAX_BUF)
+            require(delta == (1, 0, 0, 0), (name, "launches", delta))
+            require(docs.shape == scores.shape == (len(batch), TOPK_K)
+                    and scores.dtype == np.float32 and np.isfinite(scores).all())
+            eq, w = check_tfidf(docs, scores, ranges, da, d, pdl, conj, TOPK_K)
+            exact["tfidf"] += eq
+            worst_ulp = max(worst_ulp, w)
+    launches = {"backward_search": bs.launches}
+    require(bs.launches > 0, launches)
+    # where a batch's time goes: device busy time against the host clock
+    for name, fn in (
+        ("topk[pdl]", lambda: svc.topk_arrays(batches[-1], k=TOPK_K, engine="pdl",
+                                              max_buf=MAX_BUF)),
+        ("tfidf[or]", lambda: svc.tfidf_arrays(tf_queries[-1], k=TOPK_K,
+                                               max_buf=TFIDF_MAX_BUF)),
+    ):
+        prof = profile_calls(fn, 1)
+        top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:3]
+        log(f"[topk] {name} profile, last batch: wall {prof['wall_ms']:.2f} ms, device "
+            f"{prof['device_ms']} ms, {prof['kernels_per_call']:.0f} device activities; top "
+            + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top))
+    log(f"[topk] {len(batches)} batches of 32, launches {launches}; rows held exactly: "
+        f"topk {exact['topk']} of {5 * len(pats)}, tfidf {exact['tfidf']} of "
+        f"{2 * len(pats)} queries; largest tf-idf score distance {worst_ulp} ulp")
+    log(f"[topk] engine mix per batch (auto): {mix}")
+    log("[topk] host seconds per batch: "
+        + "; ".join(f"{k} " + " ".join(f"{x:.4f}" for x in v) for k, v in lat.items()))
+    return launches
+
+
+def phase_primitives(large, kernels):
+    """Phase 3b: wm_rank_batch and the kernel-routed ilcp_list_docs_da_batch
+    on the large index."""
+    from repro_torch.core.ilcp import ilcp_list_docs_da_batch
+    from repro_torch.kernels.ilcp_list import lockstep_iteration_cap
+    from repro_torch.succinct.wavelet import wm_rank_batch
+
+    rk, rq = kernels
+    csa, ilcp = large["csa"], large["ilcp"]
+    wm, n, dev = csa.wm, csa.n, large["da"].device
+    bwt = large["bwt"]
+    pats = large["pats"]
+    plan_lo = torch.cat([lo for lo, _ in large["ranges"]]).cpu().numpy()
+    edge_i = [0, 1, 31, 32, 33, n - 1, n]
+    c = np.asarray([int(p[0]) for p in pats] + [0] * len(edge_i)
+                   + [csa.sigma - 1] * len(edge_i), np.int32)
+    i = np.asarray(plan_lo.tolist() + edge_i + edge_i, np.int32)
+    # host oracle: occurrences of c in BWT[0:i]
+    positions = {s: np.flatnonzero(bwt == s) for s in np.unique(c).tolist()}
+    want = np.asarray([np.searchsorted(positions[s], p) for s, p in zip(c.tolist(), i.tolist())])
+    vilcp, table = ilcp.vilcp.cpu().numpy(), ilcp.rmq.table.cpu().numpy()
+    run_starts, da = ilcp.run_starts.cpu().numpy(), large["da"].cpu().numpy()
+    iters = []
+    for lo, hi in large["ranges"]:
+        it = host_ilcp_list(vilcp, table, run_starts, da, lo.cpu().numpy(), hi.cpu().numpy(),
+                            ilcp.d, MAX_DF)[4]
+        iters.append(min(max(it), lockstep_iteration_cap(MAX_DF)))
+
+    reset_counts(kernels)  # the primitives' run starts here
+    t = time.perf_counter()
+    got = wm_rank_batch(wm, torch.from_numpy(c).to(dev), torch.from_numpy(i).to(dev))
+    torch.cuda.synchronize()
+    rank_s = time.perf_counter() - t
+    require(rk.launches == wm.levels, ("wm_rank_batch launches", rk.launches, wm.levels))
+    require(np.array_equal(got.cpu().numpy(), want), "wm_rank_batch != host count over the BWT")
+    lat = []
+    for b, (lo, hi) in enumerate(large["ranges"]):
+        before = rq.launches
+        t = time.perf_counter()
+        docs, cnt = ilcp_list_docs_da_batch(ilcp, large["da"], lo, hi, MAX_DF)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        fused_docs, fused_cnt = large["listed"][b]
+        require(torch.equal(docs, fused_docs) and torch.equal(cnt, fused_cnt),
+                (b, "ilcp_list_docs_da_batch != the fused listing kernel"))
+        require(rq.launches - before == iters[b],
+                (b, "rmq launches", rq.launches - before, "lockstep iterations", iters[b]))
+    launches = {"rank": rk.launches, "rmq": rq.launches}
+    require(launches["rank"] > 0 and launches["rmq"] > 0, launches)
+    log(f"[prims] wm_rank_batch of {len(i)} (symbol, position) pairs: {rank_s:.4f} s, "
+        f"{rk.launches} rank launches ({wm.levels} levels)")
+    log(f"[prims] ilcp_list_docs_da_batch, {len(lat)} batches of 128: lockstep iterations "
+        f"{iters}, host seconds " + " ".join(f"{x:.3f}" for x in lat))
+    return launches, (c, i)
+
+
 def phase_large(dev, bs, il):
     from repro_torch.core.csa import build_csa
     from repro_torch.core.ilcp import build_ilcp, ilcp_list_docs_da_planned
@@ -391,8 +709,11 @@ def phase_large(dev, bs, il):
         require(np.all(cnt == np.minimum(truth, MAX_DF)), "large: truncated count")
     log(f"[large] {len(pats)} patterns in {len(batches)} batches: {run_s:.3f} s, "
         f"launches {launches}")
+    sa = data.sa.cpu().numpy().astype(np.int64)
     large = {"csa": csa, "ilcp": ilcp, "da": data.da, "batches": batches,
-             "ranges": [(plan.lo, plan.hi) for plan, _, _ in results]}
+             "ranges": [(plan.lo, plan.hi) for plan, _, _ in results],
+             "listed": [(docs, cnt) for _, docs, cnt in results], "pats": pats,
+             "bwt": np.asarray(coll.text, np.int32)[(sa - 1) % coll.n]}
     log(f"[large] ILCP runs rho={ilcp.nruns}")
     return large
 
@@ -520,7 +841,7 @@ def kernel_checks(svc, full_batches, large):
     kms, pms = cuda_time_ms(fk, 20), cuda_time_ms(fp, 2)
     kdev = device_ms_of(profile_calls(fk, 20), "ilcp_list_kernel")
     idx = svc.ilcp
-    hd, hc, pops, scanned = host_ilcp_list(
+    hd, hc, pops, scanned, _ = host_ilcp_list(
         idx.vilcp.cpu().numpy(), idx.rmq.table.cpu().numpy(), idx.run_starts.cpu().numpy(),
         svc.da.cpu().numpy(), lo.cpu().numpy(), hi.cpu().numpy(), idx.d, MAX_DF)
     kd, kc = fk()
@@ -553,6 +874,124 @@ def kernel_checks(svc, full_batches, large):
     return records
 
 
+def primitive_kernel_checks(svc, large, wm_args):
+    """Phase 4, rank and RMQ: each kernel against its plain version, bit for
+    bit, on every wavelet level and both ILCP sparse tables of phases 2 and
+    3 and on edge rows; then timed at the slice's shapes and on one stream
+    of ``STREAM_Q`` queries."""
+    from repro_torch.common import floor_log2, floor_log2_t
+    from repro_torch.kernels.ilcp_list import runs_of
+    from repro_torch.kernels.rank import rank, rank_plain
+    from repro_torch.kernels.rmq import rmq, rmq_plain
+
+    dev = svc.da.device
+    gen = torch.Generator().manual_seed(1)
+    mism, err = {"rank": 0, "rmq": 0}, {"rank": 0, "rmq": 0}
+
+    def rand(hi_excl, q):
+        return torch.randint(0, hi_excl, (q,), generator=gen, dtype=torch.int32).to(dev)
+
+    def compare(name, k, p, label):
+        mm = int((k != p).sum())
+        mism[name] += mm
+        err[name] = max(err[name], int((k.long() - p.long()).abs().max()) if k.numel() else 0)
+        log(f"[kernels] {name} {label}: mismatches {mm}")
+
+    def rmq_ranges(rho, q):
+        """Random starts with spans of every scale, plus the edge rows:
+        span 1, hi < lo, the whole array, and every power-of-two span."""
+        lo = rand(rho, q)
+        scale = rand(floor_log2(rho) + 1, q)
+        hi = torch.clamp(lo + (rand(1 << 30, q) % (torch.ones_like(scale) << scale)), max=rho - 1)
+        elo = [0, rho - 1, 0, min(7, rho - 1), rho - 1]
+        ehi = [rho - 1, rho - 1, 0, min(3, rho - 1), 0]
+        for p in range(floor_log2(rho) + 1):
+            a = int(torch.randint(0, rho - (1 << p) + 1, (1,), generator=gen))
+            elo.append(a)
+            ehi.append(a + (1 << p) - 1)
+        edge = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+        return torch.cat([edge(elo), lo]), torch.cat([edge(ehi), hi.to(torch.int32)])
+
+    def rmq_reads(vals, table, lo, hi):
+        """(table cells, value cells, leftmost ties) a query batch reads."""
+        levels, rho = table.shape
+        k = torch.clamp(floor_log2_t(torch.clamp(hi - lo + 1, min=1)), 0, levels - 1).long()
+        right = torch.maximum(hi - (1 << k) + 1, lo).long()
+        ia, ib = table[k, lo.long()], table[k, right]
+        cells = torch.unique(torch.cat([k * rho + lo.long(), k * rho + right])).numel()
+        heads = torch.unique(torch.cat([ia, ib])).numel()
+        return cells, heads, int(((ia != ib) & (vals[ia] == vals[ib])).sum())
+
+    # -- bit for bit
+    for label, wm in (("full", svc.csa.wm), ("large", large["csa"].wm)):
+        n = wm.n
+        edge = torch.tensor([0, 1, 31, 32, 33, 63, 64, n - 1, n], dtype=torch.int32, device=dev)
+        for lvl in range(wm.levels):
+            a = (wm.words[lvl], wm.ones_prefix[lvl], torch.cat([edge, rand(n + 1, 100_000)]))
+            compare("rank", rank(*a), rank_plain(*a), f"{label} level {lvl} (Q=100,009)")
+    ties = 0
+    for label, ix in (("full", svc.ilcp), ("large", large["ilcp"])):
+        lo, hi = rmq_ranges(ix.nruns, 100_000)
+        a = (ix.vilcp, ix.rmq.table, lo, hi)
+        compare("rmq", rmq(*a), rmq_plain(*a), f"{label} ILCP, rho={ix.nruns} (Q={lo.numel()})")
+        ties += rmq_reads(*a)[2]
+    require(mism == {"rank": 0, "rmq": 0}, mism)
+    require(ties > 0, "no RMQ query met a leftmost tie between its two table reads")
+    log(f"[kernels] rmq: {ties} queries resolved a tie between equal table minima")
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+        return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+    def rank_timing(wm, idx, reps):
+        a = (wm.words[0], wm.ones_prefix[0], idx)
+        fk, fp = (lambda: rank(*a)), (lambda: rank_plain(*a))
+        q = idx.numel()
+        b_ms, b_by = bound(q * 8 + 8 * torch.unique(idx >> 5).numel(), q * 8)
+        return dict(ms=cuda_time_ms(fk, reps), device_ms=device_ms_of(profile_calls(fk, 20),
+                    "rank_kernel"), plain_ms=cuda_time_ms(fp, max(reps // 5, 2)),
+                    bound_ms=b_ms, bound_by=b_by, q=q)
+
+    def rmq_timing(ix, lo, hi, reps):
+        a = (ix.vilcp, ix.rmq.table, lo, hi)
+        fk, fp = (lambda: rmq(*a)), (lambda: rmq_plain(*a))
+        q = lo.numel()
+        cells, heads, _ = rmq_reads(*a)
+        b_ms, b_by = bound(q * 12 + 4 * cells + 4 * heads, q * 16)
+        return dict(ms=cuda_time_ms(fk, reps), device_ms=device_ms_of(profile_calls(fk, 20),
+                    "rmq_kernel"), plain_ms=cuda_time_ms(fp, max(reps // 5, 2)),
+                    bound_ms=b_ms, bound_by=b_by, q=q)
+
+    # -- times: the slice's shapes (wm_rank_batch's level-0 stream [lo; hi] of
+    # phase 3b; the first lockstep iteration's batch of 128 intervals), then
+    # one stream of STREAM_Q queries over the large index
+    wm, ix = large["csa"].wm, large["ilcp"]
+    c, i = wm_args
+    i = torch.from_numpy(i).to(dev)
+    slice_rank = rank_timing(wm, torch.cat([torch.zeros_like(i), i]), 50)
+    stream_rank = rank_timing(wm, rand(wm.n + 1, STREAM_Q), 10)
+    lo, hi = large["ranges"][0]
+    a_run = torch.clamp(runs_of(ix.run_starts, lo), 0, ix.nruns - 1).to(torch.int32)
+    b_run = torch.clamp(runs_of(ix.run_starts, hi - 1), 0, ix.nruns - 1).to(torch.int32)
+    slice_rmq = rmq_timing(ix, a_run.contiguous(), b_run.contiguous(), 50)
+    stream_rmq = rmq_timing(ix, *(x[:STREAM_Q].contiguous() for x in rmq_ranges(ix.nruns, STREAM_Q)),
+                            10)
+    records = []
+    for name, line, sl, st in (("rank", "src/repro/kernels/rank.py:39", slice_rank, stream_rank),
+                               ("rmq", "src/repro/kernels/rmq.py:44", slice_rmq, stream_rmq)):
+        records.append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/retrieval_kernels.cu",
+            replaces=line, launches=None, max_abs_err=err[name], mismatches=mism[name],
+            ms=sl["ms"], kernel_ms=sl["ms"], device_ms=sl["device_ms"], plain_ms=sl["plain_ms"],
+            library_ms=None, bound_ms=sl["bound_ms"], bound_by=sl["bound_by"],
+            shape=f"Q={sl['q']} (large index, n={wm.n}, rho={ix.nruns})",
+            stream_q=st["q"], stream_ms=st["ms"], stream_device_ms=st["device_ms"],
+            stream_plain_ms=st["plain_ms"], stream_bound_ms=st["bound_ms"],
+            stream_bound_by=st["bound_by"],
+        ))
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU",
@@ -561,22 +1000,35 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels.backward_search import backward_search
     from repro_torch.kernels.ilcp_list import ilcp_list
+    from repro_torch.kernels.rank import rank
+    from repro_torch.kernels.rmq import rmq
 
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     phase_build()
+    paths = {}
     t0 = time.perf_counter()
-    svc, full_batches, main_launches = phase_full_path(dev, backward_search, ilcp_list)
+    svc, full_batches, paths["list"] = phase_full_path(dev, backward_search, ilcp_list)
     log(f"[full] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["topk_tfidf"] = phase_topk_tfidf(dev, (backward_search, ilcp_list, rank, rmq))
+    log(f"[topk] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     large = phase_large(dev, backward_search, ilcp_list)
     log(f"[large] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    paths["primitives"], wm_args = phase_primitives(large, (rank, rmq))
+    log(f"[prims] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     records = kernel_checks(svc, full_batches, large)
+    records += primitive_kernel_checks(svc, large, wm_args)
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     for r in records:
-        r["launches"] = main_launches[r["name"]]
+        # each kernel's launches on the paths that run it, each path counted
+        # from 0 just before it ran
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if r["name"] in c}
+        r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

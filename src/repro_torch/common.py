@@ -164,3 +164,13 @@ def searchsorted_i32(seq: torch.Tensor, values: torch.Tensor,
 
 def arange_i32(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=IDX, device=device)
+
+
+def lexsort_rows(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
+    """Row-wise permutation (int64[B, W]) that orders each row by
+    ``primary`` ascending, ties by ``secondary`` ascending: two stable
+    sorts, the secondary key first (``np.lexsort((secondary, primary))``
+    per row)."""
+    order = torch.sort(secondary, dim=1, stable=True).indices
+    p = torch.gather(primary, 1, order)
+    return torch.gather(order, 1, torch.sort(p, dim=1, stable=True).indices)

@@ -2,10 +2,10 @@
 
 ``from_numpy`` takes the fields of an index object as a (nested) dict of
 numpy arrays and Python scalars — the layout of the reference package's
-CSA, ILCP, Sada, PDL-list and wavelet/bitvector dataclasses, keyed by field
-name — and returns the port's index object on a device.  uint32 bit words
-become their int32 bit patterns; fields the port does not keep (the PDL's
-top-k frequencies, Sada's unused filters) are ignored.
+CSA, ILCP, Sada, PDL (listing and top-k) and wavelet/bitvector dataclasses,
+keyed by field name — and returns the port's index object on a device.
+uint32 bit words become their int32 bit patterns; fields the port does not
+keep (Sada's unused filters) are ignored.
 
 ``service_from_numpy`` assembles a ``RetrievalService`` from such dicts, so
 the port's query path can be held against the reference on the identical
@@ -54,10 +54,11 @@ def from_numpy(cls, fields: dict, device="cuda"):
 
 
 def service_from_numpy(coll: Collection, csa: dict, ilcp: dict, sada: dict,
-                       pdl_list: dict, da, device="cuda", **knobs) -> RetrievalService:
-    """A ``RetrievalService`` over an index given as field dicts;
-    ``knobs`` are its other fields (``occ_df_threshold``,
-    ``brute_window``)."""
+                       pdl_list: dict, da, pdl_topk: dict | None = None,
+                       device="cuda", **knobs) -> RetrievalService:
+    """A ``RetrievalService`` over an index given as field dicts (without
+    ``pdl_topk`` it serves no ``topk`` or ``tfidf``); ``knobs`` are its
+    other fields (``occ_df_threshold``, ``brute_window``)."""
     dev = resolve_device(device)
     if sada.get("variant", "sparse") != "sparse":
         raise ValueError("only the 'sparse' Sada variant is ported")
@@ -68,5 +69,6 @@ def service_from_numpy(coll: Collection, csa: dict, ilcp: dict, sada: dict,
         pdl_list=from_numpy(PDLIndex, pdl_list, dev),
         sada=from_numpy(SadaCount, sada, dev),
         da=_tensor(np.asarray(da, np.int32), dev),
+        pdl_topk=None if pdl_topk is None else from_numpy(PDLIndex, pdl_topk, dev),
         **knobs,
     )

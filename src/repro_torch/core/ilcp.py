@@ -7,7 +7,9 @@ and for counting a wavelet matrix over ``vilcp`` plus the value-sorted
 cumulative run lengths (the paper's L').  Document listing is the Fig-1
 recursion, run by the port's kernel (``repro_torch.kernels.ilcp_list``),
 whose wrapper takes its plain batch-lockstep version on CPU tensors; both
-report documents in discovery order.
+report documents in discovery order.  ``ilcp_list_docs_da_batch`` is the
+reference's other route to the same integers: the lockstep machine with
+its RMQs sent through the batched RMQ kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.common import IDX, TensorDataclass, ceil_log2, elias_fano_bits
 from repro_torch.core.suffix import SuffixData
-from repro_torch.kernels.ilcp_list import ilcp_list
+from repro_torch.kernels.ilcp_list import ilcp_list, ilcp_list_plain, runs_of
+from repro_torch.kernels.rmq import rmq
 from repro_torch.succinct.bitvector import SparseBitvector, sparse_from_positions
 from repro_torch.succinct.rmq import SparseTableRMQ, rmq_build
 from repro_torch.succinct.wavelet import WaveletMatrix, wm_build
@@ -101,3 +104,30 @@ def ilcp_list_docs_da_planned(index: ILCPIndex, da, lo, hi, max_df: int):
     tensors)."""
     return ilcp_list(index.vilcp, index.rmq.table, index.run_starts, da,
                      lo.contiguous(), hi.contiguous(), d=index.d, max_df=max_df)
+
+
+def ilcp_list_docs_da_batch(index: ILCPIndex, da, lo, hi, max_df: int):
+    """Sada-I-D over a range batch, kernel-routed the reference's way
+    (``repro.core.ilcp.ilcp_list_docs_da_batch(use_rmq_kernel=True)``): the
+    batch-lockstep POP/SCAN machine (``ilcp_list_plain``) with the
+    popped-interval RMQs of every iteration sent through the batched RMQ
+    kernel's wrapper, one launch per lockstep iteration.  It is not the
+    fused listing kernel of ``ilcp_list_docs_da_planned``, which it equals
+    integer for integer: (docs int32[B, max_df] padded -1, in discovery
+    order; count[B])."""
+    lo = lo.contiguous()
+    hi = hi.contiguous()
+    B = lo.shape[0]
+    if B == 0 or max_df <= 0:
+        return (torch.full((B, max(max_df, 0)), -1, dtype=IDX, device=lo.device),
+                torch.zeros(B, dtype=IDX, device=lo.device))
+    vilcp, table = index.vilcp, index.rmq.table
+
+    def rmq_fn(a, b):
+        return rmq(vilcp, table, a, b)
+
+    return ilcp_list_plain(
+        vilcp, table, index.run_starts, da, lo, hi,
+        runs_of(index.run_starts, lo), runs_of(index.run_starts, hi - 1),
+        d=index.d, max_df=max_df, rmq_fn=rmq_fn,
+    )

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common import BIG, IDX
+from repro_torch.common import BIG, IDX, lexsort_rows
 from repro_torch.core.csa import CSA, csa_doc_of, csa_lookup
 
 
@@ -51,3 +51,20 @@ def brute_list_csa_batch(csa: CSA, lo, hi, max_occ: int, max_df: int):
     valid = idx < hi[:, None]
     text_pos = csa_lookup(csa, torch.clamp(idx, max=csa.n - 1))
     return _distinct_from_window(csa_doc_of(csa, text_pos), valid, max_df)
+
+
+def brute_topk_batch(docs, counts, freqs, k: int):
+    """Row-wise top-k of ``brute_list_csa_batch`` output by (tf desc, id
+    asc): (docs int32[B, k] padded -1, tf int32[B, k])."""
+    B, max_df = docs.shape
+    dev = docs.device
+    valid = torch.arange(max_df, device=dev)[None, :] < counts[:, None]
+    top = lexsort_rows(torch.where(valid, -freqs, BIG),
+                       torch.where(valid, docs, BIG))[:, :k]
+    kk = top.shape[1]
+    out_docs = torch.full((B, k), -1, dtype=IDX, device=dev)
+    out_tf = torch.zeros((B, k), dtype=IDX, device=dev)
+    out_docs[:, :kk] = torch.gather(docs, 1, top)
+    out_tf[:, :kk] = torch.gather(freqs, 1, top)
+    ok = torch.arange(k, device=dev)[None, :] < torch.clamp(counts, max=k)[:, None]
+    return torch.where(ok, out_docs, -1).to(IDX), torch.where(ok, out_tf, 0).to(IDX)

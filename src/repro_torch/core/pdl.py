@@ -1,14 +1,17 @@
-"""PDL — Precomputed Document Lists, listing mode (Section 4; counterpart of
+"""PDL — Precomputed Document Lists (Section 4; counterpart of
 ``repro.core.pdl``).
 
 Build (host numpy, offline, as in the reference): suffix-tree topology from
 LCP, leaf blocks of at most ``block_size`` suffixes, bottom-up beta-pruning
-of internal nodes, sorted document lists Re-Pair-compressed with a shared
-grammar.  The top-k mode (frequencies) is not ported yet.
+of internal nodes (``beta=None`` keeps every one), document lists
+Re-Pair-compressed with a shared grammar.  Listing mode stores each list
+sorted by id; top-k mode sorts it by (tf desc, id asc) and stores the
+frequencies as runs over the concatenated lists (Section 4.2).
 
-Query: partial head/tail blocks go through brute CSA windows; full blocks
-through the Fig-4 climb to the highest stored node that fits in the query,
-whose list is decompressed with a bounded grammar stack.  The reference
+Query: partial head/tail blocks go through brute CSA windows (frequency 1
+per entry); full blocks through the Fig-4 climb to the highest stored node
+that fits in the query, whose list is decompressed with a bounded grammar
+stack, each entry with its stored frequency.  The reference
 runs the climb, the expansion and the cover loop as nested per-query
 ``while_loop``s under ``vmap``.  Here they are one batched state machine
 with masks: each query's trajectory, and its ``max_buf`` / ``max_cover``
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.common import (
-    IDX, TensorDataclass, as_i32, ceil_log2, elias_fano_bits, searchsorted_i32,
+    BIG, IDX, TensorDataclass, as_i32, ceil_log2, elias_fano_bits,
+    lexsort_rows, searchsorted_i32,
 )
 from repro_torch.core.csa import CSA, csa_doc_of, csa_lookup
 from repro_torch.core.listing import _distinct_from_window
@@ -47,6 +51,9 @@ class PDLIndex(TensorDataclass):
     rule_left: torch.Tensor       # int32[max(R,1)]
     rule_right: torch.Tensor      # int32[max(R,1)]
     doc_base: torch.Tensor        # int32[L + I + 1] prefix sum of |D_v|
+    # --- frequencies (top-k mode; [0] and [1] in listing mode) ---------
+    freq_vals: torch.Tensor       # int32[K] run values
+    freq_gcum: torch.Tensor       # int32[K] strictly increasing global cum counts
     # --- static metadata --------------------------------------------------
     n: int
     d: int
@@ -57,10 +64,12 @@ class PDLIndex(TensorDataclass):
     nrules: int
     max_set_len: int
     max_rule_depth: int
+    has_freqs: bool
     total_docs_stored: int
 
     def modeled_bits(self) -> int:
-        """Paper Section 4.1 accounting: A, G, B_A, B_G, B_L, B_F, F, N."""
+        """Paper Section 4.1 accounting: A, G, B_A, B_G, B_L, B_F, F, N
+        (+ the delta-coded frequency runs of the top-k mode)."""
         L, I, n, d = self.L, self.I, self.n, self.d  # noqa: E741
         nR = self.nrules
         a_bits = int(self.A.shape[0]) * ceil_log2(d + nR + 1)
@@ -68,7 +77,19 @@ class PDLIndex(TensorDataclass):
         ba_bits = int(self.A.shape[0]) + 2 * (L + I)
         bl_bits = elias_fano_bits(L, max(n, 1))
         bf_bits = (L + I) + I * ceil_log2(max(2, I)) + I * ceil_log2(max(2, L))
-        return a_bits + g_bits + ba_bits + bl_bits + bf_bits
+        freq_bits = 0
+        if self.has_freqs:
+            fv = self.freq_vals.cpu().numpy().astype(np.int64)
+            lens = np.diff(self.freq_gcum.cpu().numpy().astype(np.int64), prepend=0)
+            freq_bits = int(_delta_bits(fv + 1).sum() + _delta_bits(np.maximum(lens, 1)).sum())
+        return a_bits + g_bits + ba_bits + bl_bits + bf_bits + freq_bits
+
+
+def _delta_bits(v: np.ndarray) -> np.ndarray:
+    """``delta_code_len`` of every value of an array of positive integers
+    (floor(lg x) is the binary exponent of x, exact below 2^53)."""
+    n = np.frexp(v.astype(np.float64))[1] - 1
+    return 2 * (np.frexp((n + 1).astype(np.float64))[1] - 1) + 1 + n
 
 
 # ===========================================================================
@@ -76,8 +97,14 @@ class PDLIndex(TensorDataclass):
 # ===========================================================================
 
 
-def _node_set(da: np.ndarray, lo: int, hi: int) -> np.ndarray:
-    return np.unique(da[lo:hi]).astype(np.int64)
+def _node_set(da: np.ndarray, lo: int, hi: int, topk: bool):
+    """Distinct documents of DA[lo:hi] and their frequencies: by id, or by
+    (tf desc, id asc) in top-k mode."""
+    docs, counts = np.unique(da[lo:hi], return_counts=True)
+    if topk:
+        order = np.lexsort((docs, -counts))
+        docs, counts = docs[order], counts[order]
+    return docs.astype(np.int64), counts.astype(np.int64)
 
 
 def build_pdl(
@@ -87,8 +114,9 @@ def build_pdl(
     mode: str = "list",
     repair_kwargs: dict | None = None,
 ) -> PDLIndex:
-    if mode != "list":
-        raise ValueError(f"PDL mode {mode!r} is not ported (only 'list')")
+    if mode not in ("list", "topk"):
+        raise ValueError(f"PDL mode must be 'list' or 'topk', not {mode!r}")
+    topk = mode == "topk"
     da = data.da.cpu().numpy()
     n, d = data.n, data.d
     b = block_size
@@ -106,10 +134,13 @@ def build_pdl(
     internal_next_leaf: list = []
     node_is_leaf: list[bool] = []
     set_store: list[np.ndarray] = []
+    freq_store: list[np.ndarray] = []
 
     def new_leaf(lo: int, hi: int) -> int:
         nid = len(set_store)
-        set_store.append(_node_set(da, lo, hi))
+        docs, freqs = _node_set(da, lo, hi, topk)
+        set_store.append(docs)
+        freq_store.append(freqs)
         node_is_leaf.append(True)
         leaf_bounds.append((lo, hi))
         return nid
@@ -156,11 +187,12 @@ def build_pdl(
                 cursor += 1
             # finalize node k
             stack.pop()
-            docs = _node_set(da, int(tree.lo[k]), hi_k)
+            docs, freqs = _node_set(da, int(tree.lo[k]), hi_k, topk)
             child_total = sum(len(set_store[u]) for u in units)
             if beta is None or child_total > beta * len(docs):
                 nid = len(set_store)
                 set_store.append(docs)
+                freq_store.append(freqs)
                 node_is_leaf.append(False)
                 internal_children.append(list(units))
                 internal_next_leaf.append(len(leaf_bounds))
@@ -192,8 +224,10 @@ def build_pdl(
     I = len(internal_old)  # noqa: E741
 
     lists = [None] * (L + I)
+    freqs_l = [None] * (L + I)
     for old, new in remap.items():
         lists[new] = set_store[old]
+        freqs_l[new] = freq_store[old]
 
     leaf_bounds_sorted = sorted(leaf_bounds)
     leaf_starts = np.asarray([lo for lo, _ in leaf_bounds_sorted] + [n], dtype=np.int32)
@@ -234,6 +268,17 @@ def build_pdl(
     set_sizes = np.asarray([len(x) for x in lists], dtype=np.int64)
     doc_base = np.concatenate([[0], np.cumsum(set_sizes)]).astype(np.int32)
 
+    # frequency runs over the concatenated lists: a run ends where the next
+    # frequency differs or a list ends
+    freq_vals, freq_gcum = [0], [1]
+    if topk and set_sizes.sum():
+        flat = np.concatenate([f for f in freqs_l if len(f)])
+        ends = np.zeros(len(flat), bool)
+        ends[:-1] = flat[1:] != flat[:-1]
+        ends[doc_base[1:][set_sizes > 0] - 1] = True
+        freq_vals = flat[ends]
+        freq_gcum = np.flatnonzero(ends) + 1
+
     dev = data.device
     return PDLIndex(
         leaf_starts=as_i32(leaf_starts, dev),
@@ -245,6 +290,8 @@ def build_pdl(
         rule_left=as_i32(rule_left, dev),
         rule_right=as_i32(rule_right, dev),
         doc_base=as_i32(doc_base, dev),
+        freq_vals=as_i32(freq_vals, dev),
+        freq_gcum=as_i32(freq_gcum, dev),
         n=n,
         d=d,
         L=L,
@@ -254,6 +301,7 @@ def build_pdl(
         nrules=R,
         max_set_len=int(set_sizes.max()) if len(set_sizes) else 0,
         max_rule_depth=max_rule_depth,
+        has_freqs=topk,
         total_docs_stored=int(set_sizes.sum()),
     )
 
@@ -263,16 +311,17 @@ def build_pdl(
 # ===========================================================================
 
 
-def _brute_window_into(csa: CSA, lo, hi, buf, base, cap: int, window: int):
+def _brute_window_into(csa: CSA, lo, hi, buf, fbuf, base, cap: int, window: int):
     """CSA-locate the partial blocks [lo, hi) (hi - lo <= window) into the
-    rows of ``buf`` after ``base``.  Slot ``cap`` of ``buf`` takes every
-    write the reference drops."""
+    rows of ``buf`` after ``base``, each with frequency 1 in ``fbuf``.
+    Slot ``cap`` takes every write the reference drops."""
     idx = lo[:, None] + torch.arange(window, dtype=IDX, device=lo.device)[None, :]
     valid = idx < hi[:, None]
     docs = csa_doc_of(csa, csa_lookup(csa, torch.clamp(idx, max=csa.n - 1)))
     offs = torch.cumsum(valid.to(IDX), 1, dtype=IDX) - 1
-    widx = torch.clamp(torch.where(valid, base[:, None] + offs, cap), max=cap)
-    buf.scatter_(1, widx.long(), docs)
+    widx = torch.clamp(torch.where(valid, base[:, None] + offs, cap), max=cap).long()
+    buf.scatter_(1, widx, docs)
+    fbuf.scatter_(1, widx, 1)
     return base + valid.sum(1, dtype=IDX)
 
 
@@ -295,9 +344,10 @@ def _climb(index: PDLIndex, leaf_i, rn, active):
     return node, nxt
 
 
-def _expand_into(index: PDLIndex, nd, buf, base, cap: int, active):
+def _expand_into(index: PDLIndex, nd, buf, fbuf, base, cap: int, active):
     """Decompress node ``nd``'s list into each active row of ``buf`` from
-    ``base`` on, emitting at most cap - base entries.  Returns the new
+    ``base`` on, emitting at most cap - base entries, with each entry's
+    stored frequency in ``fbuf`` (1 in listing mode).  Returns the new
     base."""
     d = index.d
     B = nd.shape[0]
@@ -306,9 +356,11 @@ def _expand_into(index: PDLIndex, nd, buf, base, cap: int, active):
     ndc = torch.clamp(nd, 0, index.L + index.I - 1)
     ptr = index.set_off[ndc]
     end = index.set_off[ndc + 1]
+    gbase = index.doc_base[ndc]
     stack_size = 2 * index.max_rule_depth + 4
     lenA = int(index.A.shape[0])
     nrule = int(index.rule_left.shape[0])
+    nruns = int(index.freq_vals.shape[0])
     iter_cap = 4 * index.max_set_len + 16
     stack = torch.zeros((B, stack_size), dtype=IDX, device=dev)
     sp = torch.zeros(B, dtype=IDX, device=dev)
@@ -328,7 +380,13 @@ def _expand_into(index: PDLIndex, nd, buf, base, cap: int, active):
         ptr = torch.where(run & ~from_stack, ptr + 1, ptr)
         is_term = sym < d
         emit = run & is_term
-        buf[rows, torch.where(emit, base + cnt, cap).long()] = sym
+        widx = torch.where(emit, base + cnt, cap).long()
+        buf[rows, widx] = sym
+        if index.has_freqs:
+            run_of = searchsorted_i32(index.freq_gcum, gbase + cnt, right=True)
+            fbuf[rows, widx] = index.freq_vals[torch.clamp(run_of, max=nruns - 1)]
+        else:
+            fbuf[rows, widx] = 1
         cnt = torch.where(emit, cnt + 1, cnt)
         # push rule children: right then left (left expands first)
         push = run & ~is_term
@@ -341,14 +399,16 @@ def _expand_into(index: PDLIndex, nd, buf, base, cap: int, active):
 
 
 def _pdl_gather(index: PDLIndex, csa: CSA, lo, hi, max_buf: int, max_cover: int):
-    """Fill a buffer with the doc ids covering SA[lo, hi): partial blocks
-    via CSA, full blocks via climb + expansion.  Returns (buf[B, max_buf],
-    count[B]); a count past ``max_buf`` means the buffer truncated."""
+    """Fill a buffer with the (doc id, tf) entries covering SA[lo, hi):
+    partial blocks via CSA (tf 1), full blocks via climb + expansion.
+    Returns (docs[B, max_buf], tf[B, max_buf], count[B]); a count past
+    ``max_buf`` means the buffer truncated."""
     B = lo.shape[0]
     L = index.L
     leaf_starts = index.leaf_starts
     cap = max_buf
     buf = torch.zeros((B, max_buf + 1), dtype=IDX, device=lo.device)
+    fbuf = torch.zeros((B, max_buf + 1), dtype=IDX, device=lo.device)
 
     # full leaves: first leaf starting >= lo .. last leaf ending <= hi
     ln = searchsorted_i32(leaf_starts[:L].contiguous(), lo)
@@ -356,11 +416,11 @@ def _pdl_gather(index: PDLIndex, csa: CSA, lo, hi, max_buf: int, max_cover: int)
 
     head_hi = torch.minimum(hi, leaf_starts[torch.clamp(ln, max=L)])
     base = torch.zeros(B, dtype=IDX, device=lo.device)
-    base = _brute_window_into(csa, lo, head_hi, buf, base, cap, index.block_size)
+    base = _brute_window_into(csa, lo, head_hi, buf, fbuf, base, cap, index.block_size)
     tail_lo = torch.maximum(
         leaf_starts[torch.clamp(torch.maximum(rn + 1, ln), max=L)], head_hi
     )
-    base = _brute_window_into(csa, tail_lo, hi, buf, base, cap, index.block_size)
+    base = _brute_window_into(csa, tail_lo, hi, buf, fbuf, base, cap, index.block_size)
 
     i = ln
     active = i <= rn
@@ -368,10 +428,10 @@ def _pdl_gather(index: PDLIndex, csa: CSA, lo, hi, max_buf: int, max_cover: int)
         if not bool(active.any()):
             break
         node, nxt = _climb(index, i, rn, active)
-        base = _expand_into(index, node, buf, base, cap, active)
+        base = _expand_into(index, node, buf, fbuf, base, cap, active)
         i = torch.where(active, nxt, i)
         active = active & (i <= rn)
-    return buf[:, :max_buf], base
+    return buf[:, :max_buf], fbuf[:, :max_buf], base
 
 
 def pdl_list_docs_batch(index: PDLIndex, csa: CSA, lo, hi, max_df: int,
@@ -379,7 +439,56 @@ def pdl_list_docs_batch(index: PDLIndex, csa: CSA, lo, hi, max_df: int,
     """PDL listing over a range batch (masked-query contract of
     repro_torch.core.listing): (docs int32[B, max_df] ascending, -1
     padded, count[B])."""
-    bd, cnt = _pdl_gather(index, csa, lo, hi, max_buf, max_cover)
+    bd, _, cnt = _pdl_gather(index, csa, lo, hi, max_buf, max_cover)
     valid = torch.arange(max_buf, device=lo.device)[None, :] < cnt[:, None]
     docs, count, _ = _distinct_from_window(bd, valid, max_df)
     return docs, count
+
+
+def pdl_doc_freqs_batch(index: PDLIndex, csa: CSA, lo, hi, max_buf: int = 4096,
+                        max_cover: int = 1024):
+    """Per-range (document, tf) aggregation, the primitive behind top-k and
+    tf-idf: the gathered entries merged by document with their frequencies
+    summed.  Returns (docs int32[B, max_buf] ascending, padded with
+    INT32_MAX; tf int32[B, max_buf]; ndocs int32[B])."""
+    bd, bf, cnt = _pdl_gather(index, csa, lo, hi, max_buf, max_cover)
+    B = lo.shape[0]
+    dev = lo.device
+    pos = torch.arange(max_buf, dtype=IDX, device=dev)
+    valid = pos[None, :] < cnt[:, None]
+    s_docs, order = torch.sort(torch.where(valid, bd, BIG), dim=1, stable=True)
+    s_freqs = torch.gather(torch.where(valid, bf, 0), 1, order)
+    new_doc = torch.ones_like(valid)
+    new_doc[:, 1:] = s_docs[:, 1:] != s_docs[:, :-1]
+    is_doc = s_docs < BIG
+    new_doc &= is_doc
+    cums = torch.zeros((B, max_buf + 1), dtype=IDX, device=dev)
+    cums[:, 1:] = torch.cumsum(s_freqs, 1, dtype=IDX)
+    seg_id = torch.cumsum(new_doc.to(IDX), 1, dtype=IDX) - 1
+    nseg = new_doc.sum(1, dtype=IDX)
+    # segment starts; writes the reference drops land in the last column
+    starts = torch.zeros((B, max_buf + 2), dtype=IDX, device=dev)
+    starts.scatter_(1, torch.where(new_doc, seg_id, max_buf + 1).long(),
+                    pos.expand(B, max_buf))
+    col = torch.arange(max_buf + 1, dtype=IDX, device=dev)[None, :]
+    starts = torch.where(col < nseg[:, None], starts[:, : max_buf + 1],
+                         is_doc.sum(1, dtype=IDX)[:, None]).long()
+    tf = torch.gather(cums, 1, starts[:, 1:]) - torch.gather(cums, 1, starts[:, :-1])
+    seg_docs = torch.gather(s_docs, 1, torch.clamp(starts[:, :max_buf], max=max_buf - 1))
+    seg_valid = pos[None, :] < nseg[:, None]
+    return (torch.where(seg_valid, seg_docs, BIG).to(IDX),
+            torch.where(seg_valid, tf, 0).to(IDX), nseg)
+
+
+def pdl_topk_batch(index: PDLIndex, csa: CSA, lo, hi, k: int, max_buf: int = 4096,
+                   max_cover: int = 1024):
+    """Top-k documents of each range by (tf desc, id asc), k <= max_buf:
+    (docs int32[B, k] padded -1, tf int32[B, k])."""
+    seg_docs, tf, nseg = pdl_doc_freqs_batch(index, csa, lo, hi, max_buf, max_cover)
+    seg_valid = torch.arange(max_buf, device=lo.device)[None, :] < nseg[:, None]
+    negtf = torch.where(seg_valid, -tf, BIG)
+    dkey = torch.where(seg_valid, seg_docs, BIG)
+    top = lexsort_rows(negtf, dkey)[:, :k]
+    ok = torch.arange(k, device=lo.device)[None, :] < torch.clamp(nseg, max=k)[:, None]
+    return (torch.where(ok, torch.gather(dkey, 1, top), -1).to(IDX),
+            torch.where(ok, -torch.gather(negtf, 1, top), 0).to(IDX))

@@ -1,4 +1,4 @@
-// Per-query cores of the port's two Hopper kernels, written once as
+// Per-query cores of the port's Hopper kernels, written once as
 // __host__ __device__ functions: nvcc compiles them into the __global__
 // launchers of retrieval_kernels.cu, and a host C++ compiler compiles the
 // same code (with the macros below) for the core's CPU test.
@@ -39,7 +39,9 @@ RT_HD int iclamp(int x, int lo, int hi) { return imin(imax(x, lo), hi); }
 // ---------------------------------------------------------------------------
 
 // Ones in bits [0, pos) of level `lvl`: prefix of whole words + popcount of
-// the masked partial word.  One word and one prefix read per call.
+// the masked partial word.  One word and one prefix read per call.  The
+// mask is computed unsigned: pos % 32 == 0 gives 0.  Also the whole of the
+// batched rank kernel (repro/kernels/rank.py, _rank_kernel), with lvl = 0.
 RT_HD int wm_rank1(const int32_t* words, const int32_t* prefix, int stride,
                    int lvl, int pos) {
   const int64_t w = (int64_t)lvl * stride + (pos >> 5);
@@ -89,7 +91,9 @@ RT_HD void backward_search_one(
 RT_HD int stack_cap(int max_df) { return max_df + 4; }
 RT_HD int pop_cap(int max_df) { return 2 * max_df + 8; }
 
-// Leftmost argmin of vilcp[a..b] through the sparse table (levels x rho).
+// Leftmost argmin of vilcp[a..b] through the sparse table (levels x rho);
+// b < a answers the span-1 query at a.  Also the whole of the batched RMQ
+// kernel (repro/kernels/rmq.py, _rmq_kernel).
 RT_HD int rmq_leftmost(const int32_t* table, const int32_t* vilcp, int levels,
                        int rho, int a, int b) {
   const int span = imax(b - a + 1, 1);

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) launchers of the port's two kernels, with a plain C
+// Hopper (sm_90a) launchers of the port's four kernels, with a plain C
 // interface loaded through ctypes by repro_torch/kernels/_build.py.
 //
 // backward_search: replaces repro/kernels/backward_search.py,
@@ -18,7 +18,19 @@
 //   latency of the dependent RMQ -> run -> DA gather chain, one query per
 //   thread with divergent trip counts.
 //
-// Both are first versions that are simple and right.  Making them fast
+// rank: replaces repro/kernels/rank.py, rank_pallas / _rank_kernel.  One
+//   thread per query: one word and one prefix read at a data-dependent
+//   address (rt::wm_rank1, the helper the fused backward search uses), a
+//   masked popcount, one coalesced int32 write.  Bound on this card: bytes
+//   and latency of the scattered reads; the query stream itself is read and
+//   written coalesced.
+//
+// rmq: replaces repro/kernels/rmq.py, rmq_pallas / _rmq_kernel.  One thread
+//   per query: two sparse-table reads and two value reads (rt::rmq_leftmost,
+//   the helper the fused ILCP listing uses).  Bound on this card: bytes and
+//   latency of those four dependent, scattered reads.
+//
+// All four are first versions that are simple and right.  Making them fast
 // (cp.async/TMA staging of the wavelet levels, one warp per query with a
 // cooperative traversal, shared-memory stacks) is later work.
 
@@ -62,6 +74,26 @@ __global__ void ilcp_list_kernel(
       seen + (int64_t)q * seen_words, docs + (int64_t)q * max_df);
 }
 
+__global__ void rank_kernel(const int32_t* __restrict__ words,
+                            const int32_t* __restrict__ prefix,
+                            const int32_t* __restrict__ idx,
+                            int32_t* __restrict__ out, int Q) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= Q) return;
+  out[q] = rt::wm_rank1(words, prefix, 0, 0, idx[q]);
+}
+
+__global__ void rmq_kernel(const int32_t* __restrict__ values,
+                           const int32_t* __restrict__ table,
+                           const int32_t* __restrict__ lo,
+                           const int32_t* __restrict__ hi,
+                           int32_t* __restrict__ out, int Q, int levels,
+                           int rho) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= Q) return;
+  out[q] = rt::rmq_leftmost(table, values, levels, rho, lo[q], hi[q]);
+}
+
 int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -94,6 +126,23 @@ int rt_ilcp_list(const void* vilcp, const void* table, const void* run_starts,
       (const int32_t*)hi, (const int32_t*)lo_run, (const int32_t*)hi_run,
       (int32_t*)stka, (int32_t*)stkb, (uint32_t*)seen, (int32_t*)docs,
       (int32_t*)cnt, B, levels, rho, n, d, max_df, seen_words);
+  return (int)cudaGetLastError();
+}
+
+int rt_rank(const void* words, const void* prefix, const void* idx,
+            void* out, int Q, void* stream) {
+  rank_kernel<<<blocks_for(Q), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)words, (const int32_t*)prefix, (const int32_t*)idx,
+      (int32_t*)out, Q);
+  return (int)cudaGetLastError();
+}
+
+int rt_rmq(const void* values, const void* table, const void* lo,
+           const void* hi, void* out, int Q, int levels, int rho,
+           void* stream) {
+  rmq_kernel<<<blocks_for(Q), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)values, (const int32_t*)table, (const int32_t*)lo,
+      (const int32_t*)hi, (int32_t*)out, Q, levels, rho);
   return (int)cudaGetLastError();
 }
 

@@ -38,6 +38,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "rt_backward_search": [_VP] * 8 + [_I] * 6 + [_VP],
     "rt_ilcp_list": [_VP] * 13 + [_I] * 7 + [_VP],
+    "rt_rank": [_VP] * 4 + [_I] + [_VP],
+    "rt_rmq": [_VP] * 5 + [_I] * 3 + [_VP],
 }
 
 _lib = None

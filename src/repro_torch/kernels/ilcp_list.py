@@ -14,8 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common import IDX, floor_log2_t, searchsorted_i32
+from repro_torch.common import IDX, searchsorted_i32
 from repro_torch.kernels import _build
+from repro_torch.kernels.rmq import rmq_plain
 
 
 def stack_cap(max_df: int) -> int:
@@ -39,31 +40,27 @@ def runs_of(run_starts: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run, hi_run, *,
-                    d: int, max_df: int):
+                    d: int, max_df: int, rmq_fn=None):
     """Plain PyTorch version of the kernel: the whole batch advances in
     lockstep; an iteration either pops an interval and resolves its
     leftmost-min run (POP) or visits one DA position (SCAN).  ``V`` is a
     [B, d] bool matrix; writes that the reference drops go to one extra
     column that is sliced off.  Syncs with the host once per iteration.
-    Returns (docs int32[B, max_df] padded -1, cnt int32[B])."""
-    levels, rho = table.shape
+
+    ``rmq_fn(a, b)`` resolves the popped intervals of the whole batch,
+    once per iteration (the reference's ``ilcp_list_ref(rmq_fn=)``); the
+    default is the plain sparse-table RMQ.  Returns (docs int32[B, max_df]
+    padded -1, cnt int32[B])."""
+    rho = table.shape[1]
     n = da.shape[0]
     B = lo.shape[0]
     dev = lo.device
     cap = stack_cap(max_df)
     iter_cap = pop_cap(max_df)
     rows = torch.arange(B, device=dev)
-    flat = table.reshape(-1)
-
-    def rmq(a, b):
-        span = torch.clamp(b - a + 1, min=1)
-        k = torch.clamp(floor_log2_t(span), 0, levels - 1)
-        right = torch.maximum(b - (torch.ones_like(k) << k) + 1, a)
-        ia = flat[k * rho + a]
-        ib = flat[k * rho + right]
-        va = vilcp[ia]
-        vb = vilcp[ib]
-        return torch.where((vb < va) | ((vb == va) & (ib < ia)), ib, ia)
+    if rmq_fn is None:
+        def rmq_fn(a, b):
+            return rmq_plain(vilcp, table, a, b)
 
     def z():
         return torch.zeros(B, dtype=IDX, device=dev)
@@ -92,7 +89,7 @@ def ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run, hi_run, *,
         pops = torch.where(can_pop, pops + 1, pops)
 
         valid = can_pop & (a <= b) & (lo < hi)
-        r = rmq(torch.clamp(a, 0, rho - 1), torch.clamp(b, 0, rho - 1))
+        r = rmq_fn(torch.clamp(a, 0, rho - 1), torch.clamp(b, 0, rho - 1))
         i_run = torch.where(valid, r, i_run)
         k = torch.where(valid, torch.maximum(lo, run_starts[torch.clamp(r, 0, rho - 1)]), k)
         j = torch.where(valid, torch.minimum(hi, run_starts[torch.clamp(r + 1, 0, rho)]), j)

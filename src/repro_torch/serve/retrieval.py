@@ -1,8 +1,9 @@
-"""Batched document-retrieval serving: ``plan``, ``count`` and
-``list_docs`` (counterpart of ``repro.serve.retrieval``).
+"""Batched document-retrieval serving: ``plan``, ``count``, ``list_docs``,
+``topk`` and ``tfidf`` (counterpart of ``repro.serve.retrieval``).
 
 One service object owns the index stack over a collection: CSA, ILCP,
-PDL (listing mode), Sadakane counting (sparse) and the document array.
+PDL in listing mode and in top-k mode (``beta=None``, with frequencies),
+Sadakane counting (sparse) and the document array.
 A query batch runs in three stages:
 
 1. **Planner** (``repro_torch.serve.planner``): backward search through
@@ -10,14 +11,15 @@ A query batch runs in three stages:
 2. **Masked batch executors**: Brute-L, ILCP (through the port's listing
    kernel) and PDL each run over the whole batch with the queries not
    assigned to them collapsed to empty ranges; the rows are selected by
-   engine and sorted.
+   engine and sorted.  ``topk`` sends ILCP-assigned queries to the top-k
+   PDL (ILCP has no frequencies); ``tfidf`` runs every term through it.
 3. **Shape buckets**: batches pad to powers of two and pattern lengths to
    multiples of 8, as in the reference; the Brute-L window is sized per
    bucket from the planner's occ statistics and only ever grows.
 
 Not in this port yet: CUDA-graph capture of the bucketed programs (and so
 ``compile_counts``), fault hooks, ``engine="reference"``, ``count_ilcp``,
-``topk``, ``tfidf``, sharding (``mesh``) and build-time validation.
+sharding (``mesh``) and build-time validation.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ import torch
 from repro_torch.common import BIG, IDX, as_i32, resolve_device
 from repro_torch.core.csa import CSA, build_csa
 from repro_torch.core.ilcp import ILCPIndex, build_ilcp, ilcp_list_docs_da_planned
-from repro_torch.core.listing import brute_list_csa_batch
-from repro_torch.core.pdl import PDLIndex, build_pdl, pdl_list_docs_batch
+from repro_torch.core.listing import brute_list_csa_batch, brute_topk_batch
+from repro_torch.core.pdl import PDLIndex, build_pdl, pdl_list_docs_batch, pdl_topk_batch
 from repro_torch.core.sada import SadaCount, build_sada
 from repro_torch.core.suffix import Collection, build_suffix_data
+from repro_torch.core.tfidf import term_ranges_batch, tfidf_topk_batch
 from repro_torch.data.collections import normalize_patterns, pad_patterns
 from repro_torch.serve.planner import (
     ENGINE_BRUTE,
@@ -101,6 +104,31 @@ def _list_program(max_df, brute_win, max_buf,
     return _sorted_rows(docs), cnt, plan
 
 
+def _topk_program(k, max_df, brute_win, max_buf,
+                  csa, pdl_t, sada, patterns, lengths, threshold, forced):
+    """topk for one padded batch: Brute-assigned queries rank their
+    sorted occ window; PDL- and ILCP-assigned ones the top-k PDL's lists."""
+    plan = plan_queries(csa, sada, patterns, lengths, threshold, forced)
+    bl, bh = masked_ranges(plan, ENGINE_BRUTE)
+    tb_docs, tb_tf = brute_topk_batch(*brute_list_csa_batch(csa, bl, bh, brute_win, max_df), k)
+    use_pdl = (plan.engine == ENGINE_PDL) | (plan.engine == ENGINE_ILCP)
+    tp_docs, tp_tf = pdl_topk_batch(pdl_t, csa, torch.where(use_pdl, plan.lo, 0),
+                                    torch.where(use_pdl, plan.hi, 0), k, max_buf)
+    is_brute = (plan.engine == ENGINE_BRUTE)[:, None]
+    empty = (plan.engine == ENGINE_EMPTY)[:, None]
+    docs = torch.where(empty, -1, torch.where(is_brute, tb_docs, tp_docs))
+    tfs = torch.where(empty, 0, torch.where(is_brute, tb_tf, tp_tf))
+    return docs.to(IDX), tfs.to(IDX), plan
+
+
+def _tfidf_program(k, conjunctive, max_buf, csa, pdl_t, sada, patterns, lengths):
+    """tfidf for one padded [Q, T, m] batch: one range search over every
+    term, then ranked-AND/OR scoring."""
+    ranges, valid = term_ranges_batch(csa, patterns, lengths)
+    return tfidf_topk_batch(pdl_t, csa, sada, ranges, valid, k, conjunctive,
+                            max_buf=max_buf)
+
+
 @dataclasses.dataclass
 class RetrievalService:
     coll: Collection
@@ -109,10 +137,12 @@ class RetrievalService:
     pdl_list: PDLIndex
     sada: SadaCount
     da: torch.Tensor
+    pdl_topk: PDLIndex | None = None  # serves topk and tfidf
     occ_df_threshold: float = 4.0     # paper: brute wins when occ/df < ~4
     brute_window: int | None = None   # None = size per bucket from occ stats
     _brute_windows: dict = dataclasses.field(default_factory=dict, repr=False)
-    #: host-clock seconds of each build stage (suffix, csa, ilcp, pdl, sada)
+    #: host-clock seconds of each build stage (suffix, csa, ilcp, pdl,
+    #: pdl_topk, sada)
     build_seconds: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -125,12 +155,17 @@ class RetrievalService:
     def build(
         cls, coll: Collection, block_size: int = 64, beta: float = 16.0,
         sada_variant: str = "sparse", sample_rate: int = 16,
-        brute_window: int | None = None,
+        brute_window: int | None = None, topk_index: bool = True,
         device="cuda",
     ):
         """Build the index stack on ``device`` (the card unless the caller
         asks for the CPU).  Queries go through the kernel wrappers, which
-        run the kernels' plain versions only on CPU tensors."""
+        run the kernels' plain versions only on CPU tensors.
+
+        ``topk_index=False`` skips the top-k PDL, and with it ``topk`` and
+        ``tfidf``: with ``beta=None`` it stores every internal node's list,
+        about d entries per node on a repetitive collection, and its host
+        build grows faster than n (PERF.md, section 5)."""
         dev = resolve_device(device)
         seconds = {}
 
@@ -149,6 +184,8 @@ class RetrievalService:
             ilcp=timed("ilcp", build_ilcp, data),
             pdl_list=timed("pdl", build_pdl, data, block_size=block_size, beta=beta,
                            mode="list"),
+            pdl_topk=timed("pdl_topk", build_pdl, data, block_size=block_size,
+                           beta=None, mode="topk") if topk_index else None,
             sada=timed("sada", build_sada, data, sada_variant),
             da=data.da,
             brute_window=brute_window,
@@ -232,12 +269,79 @@ class RetrievalService:
         docs, cnt = self.list_docs_arrays(patterns, max_df, engine, max_buf)
         return [docs[i, : cnt[i]].tolist() for i in range(len(cnt))]
 
+    def _topk_max_df(self, max_buf: int) -> int:
+        return min(self.coll.d + 1, max_buf)
+
+    def _require_topk_index(self):
+        if self.pdl_topk is None:
+            raise ValueError("this service has no top-k PDL (pdl_topk): "
+                             "topk and tfidf need one")
+
+    def topk_arrays(self, patterns, k: int = 10, engine: str = "auto",
+                    max_buf: int = 4096):
+        """Array-level top-k endpoint: (docs int32[B, k] padded -1,
+        tf int32[B, k]) as host arrays, ranked by (tf desc, id asc)."""
+        if not len(patterns):
+            return np.zeros((0, k), np.int32), np.zeros((0, k), np.int32)
+        self._require_topk_index()
+        pats, lens, B = self._pad_batch(patterns)
+        win = self._brute_window_for(
+            "topk", (tuple(pats.shape), k, max_buf), patterns, engine, max_buf
+        )
+        docs, tfs, _ = _topk_program(
+            k, self._topk_max_df(max_buf), win, max_buf, self.csa, self.pdl_topk,
+            self.sada, pats, lens, self.occ_df_threshold, ENGINE_CODES[engine],
+        )
+        return docs[:B].cpu().numpy(), tfs[:B].cpu().numpy()
+
+    def topk(self, patterns, k: int = 10, engine: str = "auto", max_buf: int = 4096):
+        """Top-k documents by term frequency: per pattern, [(doc, tf), ...]."""
+        docs, tfs = self.topk_arrays(patterns, k, engine, max_buf)
+        return [[(int(d), int(t)) for d, t in zip(docs[i], tfs[i]) if d >= 0]
+                for i in range(docs.shape[0])]
+
+    def tfidf_arrays(self, queries, k: int = 10, conjunctive: bool = False,
+                     max_terms: int = 4, max_buf: int = 2048):
+        """Array-level ranked multi-term endpoint over lists of term
+        patterns (at most ``max_terms`` each are used): (docs int32[Q, k]
+        padded -1, scores float32[Q, k]) as host arrays."""
+        Q = len(queries)
+        if Q == 0:
+            return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
+        self._require_topk_index()
+        queries = [
+            normalize_patterns(list(terms)[:max_terms], sigma=self.coll.sigma,
+                               max_len=MAX_PATTERN_LEN)
+            for terms in queries
+        ]
+        m = max((len(t) for terms in queries for t in terms), default=1)
+        Qb, mb = _bucket_batch(Q), _bucket_len(max(m, 1))
+        pats = np.zeros((Qb, max_terms, mb), np.int32)
+        lens = np.zeros((Qb, max_terms), np.int32)
+        for qi, terms in enumerate(queries):
+            for ti, t in enumerate(terms):
+                pats[qi, ti, : len(t)] = t
+                lens[qi, ti] = len(t)
+        docs, scores = _tfidf_program(
+            k, conjunctive, max_buf, self.csa, self.pdl_topk, self.sada,
+            as_i32(pats, self.device), as_i32(lens, self.device),
+        )
+        return docs[:Q].cpu().numpy(), scores[:Q].cpu().numpy()
+
+    def tfidf(self, queries, k: int = 10, conjunctive: bool = False,
+              max_terms: int = 4, max_buf: int = 2048):
+        """Ranked multi-term retrieval: per query, [(doc, score), ...]."""
+        docs, scores = self.tfidf_arrays(queries, k, conjunctive, max_terms, max_buf)
+        return [[(int(d), float(s)) for d, s in zip(docs[i], scores[i]) if d >= 0]
+                for i in range(docs.shape[0])]
+
     # -- introspection --------------------------------------------------------
 
     def space_report(self) -> dict:
-        """Bits-per-character accounting in the paper's units."""
+        """Bits-per-character accounting in the paper's units (the top-k
+        PDL's entry only where the service has one)."""
         n = self.coll.n
-        return {
+        report = {
             "n": n,
             "d": self.coll.d,
             "csa_rlcsa_bpc": self.csa.modeled_bits_rlcsa() / n,
@@ -248,3 +352,6 @@ class RetrievalService:
             "bwt_runs": self.csa.bwt_runs,
             "ilcp_runs": self.ilcp.nruns,
         }
+        if self.pdl_topk is not None:
+            report["pdl_topk_bpc"] = self.pdl_topk.modeled_bits() / n
+        return report

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from repro_torch.common import IDX, TensorDataclass, ceil_log2, rank1_words, u32
+from repro_torch.kernels.rank import rank
 from repro_torch.succinct.bitvector import plain_from_bits
 
 
@@ -87,6 +88,24 @@ def wm_descend(wm: WaveletMatrix, c, i):
 def wm_rank(wm: WaveletMatrix, c, i):
     """rank_c(S, i): occurrences of symbol c in S[0, i), elementwise."""
     return (wm_descend(wm, c, i) - wm.sym_starts[c]).to(IDX)
+
+
+def wm_rank_batch(wm: WaveletMatrix, c, i):
+    """Batched rank_c(S, i) over int32[B] symbols (in [0, sigma)) and
+    positions, through the batched rank kernel's wrapper (counterpart of
+    the reference's ``wm_rank_batch(use_kernel=True)``): at each level the
+    two prefix ranks of the block start and the mapped position go as one
+    [lo; hi] stream of 2B queries, one launch per level."""
+    B = i.shape[0]
+    lo = torch.zeros(B, dtype=IDX, device=i.device)
+    hi = i.to(IDX)
+    for lvl in range(wm.levels):
+        bit = wm.bit_of(c, lvl)
+        z = wm.zcount[lvl]
+        r1 = rank(wm.words[lvl], wm.ones_prefix[lvl], torch.cat([lo, hi]))
+        lo = torch.where(bit == 0, lo - r1[:B], z + r1[:B])
+        hi = torch.where(bit == 0, hi - r1[B:], z + r1[B:])
+    return (hi - lo).to(IDX)
 
 
 def wm_rank_pair_batch(wm: WaveletMatrix, c, lo, hi):

@@ -1,11 +1,11 @@
 """The CUDA kernels' per-query core, compiled for the host.
 
-``repro_torch/csrc/retrieval_core.cuh`` holds the logic of both Hopper
+``repro_torch/csrc/retrieval_core.cuh`` holds the logic of the Hopper
 kernels as ``__host__ __device__`` functions.  Here a host C++ compiler
 builds it (outside ``__CUDACC__`` the header maps ``__popc``/``__clz`` to
 the compiler builtins) behind a small C shim, and its integers are held
 against the port's plain versions and the JAX reference on the inputs of
-``test_torch_kernels.py``.  This is the only check of the kernels' logic
+``test_torch_kernels.py`` and ``test_torch_primitives.py``.  This is the only check of the kernels' logic
 that runs without the card.
 """
 
@@ -24,6 +24,9 @@ from repro.kernels import ref
 from repro.succinct.wavelet import wm_build as jax_wm_build
 from repro_torch.kernels.backward_search import backward_search_plain, reverse_patterns
 from repro_torch.kernels.ilcp_list import ilcp_list_plain, runs_of
+from repro_torch.kernels.rank import rank_plain
+from repro_torch.kernels.rmq import rmq_plain
+from test_torch_primitives import rank_case, rmq_case
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
@@ -56,6 +59,18 @@ extern "C" void core_ilcp_list(
                                sa.data(), sb.data(), seen.data(),
                                docs + (long)q * max_df);
   }
+}
+
+extern "C" void core_rank(const int32_t* words, const int32_t* prefix,
+                          const int32_t* idx, int32_t* out, int Q) {
+  for (int q = 0; q < Q; ++q) out[q] = rt::wm_rank1(words, prefix, 0, 0, idx[q]);
+}
+
+extern "C" void core_rmq(const int32_t* values, const int32_t* table,
+                         const int32_t* lo, const int32_t* hi, int32_t* out,
+                         int Q, int levels, int rho) {
+  for (int q = 0; q < Q; ++q)
+    out[q] = rt::rmq_leftmost(table, values, levels, rho, lo[q], hi[q]);
 }
 """
 
@@ -175,3 +190,23 @@ def test_core_ilcp_list(core, max_df):
     )
     np.testing.assert_array_equal(cnt, np.asarray(rc))
     np.testing.assert_array_equal(docs, np.asarray(rd))
+
+
+@pytest.mark.parametrize("W,Q", [(1, 3), (5, 40), (70, 500)])
+def test_core_rank(core, W, Q):
+    words, prefix, idx = rank_case(W, Q, seed=W + Q)
+    words = words.view(np.int32)
+    out = np.zeros(idx.shape[0], np.int32)
+    core.core_rank(_p(words), _p(prefix), _p(idx), _p(out), idx.shape[0])
+    want = rank_plain(torch.from_numpy(words), torch.from_numpy(prefix), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out, want.numpy())
+
+
+@pytest.mark.parametrize("rho,Q,distinct", [(1, 2, 1), (2, 5, 2), (64, 100, 3), (1000, 50, 2)])
+def test_core_rmq(core, rho, Q, distinct):
+    values, table, lo, hi = rmq_case(rho, Q, rho + Q, distinct)
+    out = np.zeros(lo.shape[0], np.int32)
+    core.core_rmq(_p(values), _p(table), _p(lo), _p(hi), _p(out), lo.shape[0],
+                  table.shape[0], rho)
+    want = rmq_plain(*(torch.from_numpy(a) for a in (values, table, lo, hi)))
+    np.testing.assert_array_equal(out, want.numpy())
