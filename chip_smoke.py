@@ -6,8 +6,9 @@ Run from the repository root with no arguments:
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. Device and build: the card's name and power limit, then the four CUDA
-   kernels built from ``src/repro_torch/csrc`` with nvcc for sm_90a.
+1. Device and build: the card's name and power limit, then the six CUDA
+   kernels built from ``src/repro_torch/csrc`` with nvcc for sm_90a (one
+   nvcc per source, run together).
 2. Full path: ``RetrievalService`` built on the card for dna-p001 at
    scale 3.2 (n = 1,024,320, d = 320) without the top-k PDL; ``plan``,
    ``count`` and ``list_docs`` (engines auto, ilcp, brute, pdl) on batches
@@ -34,11 +35,38 @@ Phases (any failure exits non-zero; nothing is caught):
    one RMQ launch per lockstep iteration (counted by a host replay).
 4. Kernels against their plain PyTorch versions on the card, on the real
    index arrays of phases 2 and 3 and on edge inputs: outputs must be
-   bit-identical.  Times with CUDA events after a warm-up, device times
-   from the profiler; rank and RMQ also on one stream of 2^22 queries.
+   bit-identical.  Times with CUDA events after a warm-up; device times
+   by CUDA events around calls queued behind a spin kernel, the
+   profiler's beside them (it drops the device events of some windows);
+   rank and RMQ also on one stream of 2^22 queries.
+5. LM serving: llama3.2-3b at full width and depth (28 x 3,072, 3.6B
+   parameters, bf16, seeded random weights), ``attention_impl="flash"``.
+   (a) 4 prompts of 2,048 tokens: one ``forward_prefill`` into a cache of
+   2,080 positions, then 32 greedy ``forward_decode`` steps; (b) 1 prompt of
+   32,768 tokens (the registry's ``prefill_32k`` length at batch 1), then 8
+   steps.  28 flash launches per prefill, none per decode step.  Checks off
+   the kernel path, in f32 at the same width on 1 x 2,048 tokens: the flash
+   path's logits against the ``"xla"`` path's, and 4 decode steps against
+   ``forward_prefill`` of the tokens so far.  Then the flash kernel against
+   its plain version on layer 0's q/k/v of (a) and (b) and on edge shapes
+   (head dims 16/64/128, ragged S, S_kv > S_q, full attention, GQA), timed
+   beside ``scaled_dot_product_attention`` as a yardstick.
+6. Embedding bag on a 39,979,771 x 128 table (the largest MLPerf DLRM
+   table, 20.5 GB in f32, then in bf16): bags of B = 65,536 and 512, one
+   index each and 1..32 indices padded to 32, ``sum`` and ``mean``; each
+   against the plain version, and timed beside
+   ``torch.nn.functional.embedding_bag`` as a yardstick.
 
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
+
+Tolerances of the kernel checks: the four index kernels are bit-identical
+to their plain versions.  Flash attention in f32 within 2e-5 and embedding
+bag in f32 within 1e-6 (the reference's own kernel tests); in bf16 both
+within 2 bf16 ulps of the plain version (both compute in f32 and round
+once; ulps are counted at each element's magnitude, floored at 2^-8 of the
+tensor's largest).  The LM checks hold f32 logits within 1e-3 (summation
+order through 28 layers; logits reach about 5).
 """
 
 from __future__ import annotations
@@ -58,6 +86,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # 32-bit rate, taken here for the kernels' int32 ALU operations.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12   # dense tensor-core rate
+F32_FLOPS_PER_S = 67e12     # outside the tensor cores
 
 MAX_DF = 256
 MAX_BUF = 4096
@@ -68,6 +98,18 @@ LARGE_QUERIES = 1024
 TOPK_K = 10
 TFIDF_MAX_BUF = 2048   # the serving CLI's tf-idf buffer (max_terms = 4)
 STREAM_Q = 1 << 22     # queries of the rank/RMQ stream timings
+LM_REQUESTS = (4, 2048, 32)   # prompts, prompt tokens, greedy decode steps
+LM_LONG = (1, 32768, 8)       # the registry's prefill_32k length at batch 1
+LM_CHECK_TOKENS = 2048        # f32 checks on 1 x 2,048 tokens
+LM_CHECK_STEPS = 4
+LM_F32_TOL = 1e-3
+FLASH_F32_TOL = 2e-5
+BAG_F32_TOL = 1e-6
+BF16_ULPS = 2
+EMB_ROWS = 39_979_771         # MLPERF_TABLE_SIZES' largest (repro.models.recsys)
+EMB_DIM = 128
+EMB_BATCHES = (65_536, 512)   # the registry's train_batch and serve_p99
+EMB_LENGTHS = (1, 32)         # single-hot, and 1..32 indices padded to 32
 
 
 def log(*a):
@@ -88,6 +130,24 @@ def cuda_time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def queued_time_ms(fn, reps: int, spin_cycles: int = 20_000_000) -> float:
+    """Device milliseconds per call by CUDA events around ``reps`` calls
+    that the host enqueued while the card was held busy by a spin kernel
+    (about 10 ms), so no host launch gap lies between the events.  For
+    kernel wrappers, which never wait on the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -125,6 +185,9 @@ def device_ms_of(prof: dict, substr: str):
     """Device milliseconds per call of the kernels whose name holds
     ``substr``; None where the profiler saw no device time."""
     hits = [v for k, v in prof["by_kernel_ms"].items() if substr in k]
+    if not hits:
+        log(f"[profile] no device kernel named *{substr}*; saw "
+            + "; ".join(f"{k[:80]} {v:.4f}" for k, v in prof["by_kernel_ms"].items()))
     return sum(hits) if hits else None
 
 
@@ -815,7 +878,8 @@ def kernel_checks(svc, full_batches, large):
     p, ln = main_pats[0]
     _, _, fk, fp = bws_case(svc.csa, p, ln)
     kms, pms = cuda_time_ms(fk, 50), cuda_time_ms(fp, 10)
-    kdev = device_ms_of(profile_calls(fk, 20), "backward_search_kernel")
+    kdev, kprof = queued_time_ms(fk, 50), device_ms_of(profile_calls(fk, 20),
+                                                       "backward_search_kernel")
     hlo, hhi, steps = host_backward_search(words, prefix, zcount, base, p.cpu().numpy(),
                                            ln.cpu().numpy(), n, sigma)
     klo, khi = fk()
@@ -828,7 +892,8 @@ def kernel_checks(svc, full_batches, large):
         name="backward_search", route="cuda", source="src/repro_torch/csrc/retrieval_kernels.cu",
         replaces="src/repro/kernels/backward_search.py:92",
         launches=None, max_abs_err=errs["backward_search"], mismatches=total["backward_search"],
-        ms=kms, kernel_ms=kms, device_ms=kdev, plain_ms=pms, library_ms=None,
+        ms=kms, kernel_ms=kms, device_ms=kdev, profiler_device_ms=kprof, plain_ms=pms,
+        library_ms=None,
         bound_ms=max(bw_bytes / HBM_BYTES_PER_S, bw_ops / ALU_OPS_PER_S) * 1e3,
         bound_by="bytes" if bw_bytes / HBM_BYTES_PER_S >= bw_ops / ALU_OPS_PER_S else "operations",
         shape=f"B={B} max_m={max_m} levels={levels} n={n} active_steps={steps}",
@@ -839,7 +904,7 @@ def kernel_checks(svc, full_batches, large):
     # that is every row
     _, _, fk, fp = il_case(svc.ilcp, svc.da, lo, hi, MAX_DF)
     kms, pms = cuda_time_ms(fk, 20), cuda_time_ms(fp, 2)
-    kdev = device_ms_of(profile_calls(fk, 20), "ilcp_list_kernel")
+    kdev, kprof = queued_time_ms(fk, 20), device_ms_of(profile_calls(fk, 20), "ilcp_list_kernel")
     idx = svc.ilcp
     hd, hc, pops, scanned, _ = host_ilcp_list(
         idx.vilcp.cpu().numpy(), idx.rmq.table.cpu().numpy(), idx.run_starts.cpu().numpy(),
@@ -854,7 +919,8 @@ def kernel_checks(svc, full_batches, large):
         name="ilcp_list", route="cuda", source="src/repro_torch/csrc/retrieval_kernels.cu",
         replaces="src/repro/kernels/ilcp_list.py:193",
         launches=None, max_abs_err=errs["ilcp_list"], mismatches=total["ilcp_list"],
-        ms=kms, kernel_ms=kms, device_ms=kdev, plain_ms=pms, library_ms=None,
+        ms=kms, kernel_ms=kms, device_ms=kdev, profiler_device_ms=kprof, plain_ms=pms,
+        library_ms=None,
         bound_ms=max(il_bytes / HBM_BYTES_PER_S, il_ops / ALU_OPS_PER_S) * 1e3,
         bound_by="bytes" if il_bytes / HBM_BYTES_PER_S >= il_ops / ALU_OPS_PER_S else "operations",
         shape=f"B={B} max_df={MAX_DF} d={idx.d} rho={idx.nruns} pops={pops} scanned={scanned}",
@@ -864,12 +930,12 @@ def kernel_checks(svc, full_batches, large):
     p, ln = large["batches"][0]
     _, _, fk, fp = bws_case(large["csa"], p, ln)
     records[0]["large_ms"] = cuda_time_ms(fk, 50)
-    records[0]["large_device_ms"] = device_ms_of(profile_calls(fk, 20), "backward_search_kernel")
+    records[0]["large_device_ms"] = queued_time_ms(fk, 50)
     records[0]["large_plain_ms"] = cuda_time_ms(fp, 10)
     lo, hi = large["ranges"][0]
     _, _, fk, fp = il_case(large["ilcp"], large["da"], lo, hi, MAX_DF)
     records[1]["large_ms"] = cuda_time_ms(fk, 20)
-    records[1]["large_device_ms"] = device_ms_of(profile_calls(fk, 20), "ilcp_list_kernel")
+    records[1]["large_device_ms"] = queued_time_ms(fk, 20)
     records[1]["large_plain_ms"] = cuda_time_ms(fp, 2)
     return records
 
@@ -948,8 +1014,9 @@ def primitive_kernel_checks(svc, large, wm_args):
         fk, fp = (lambda: rank(*a)), (lambda: rank_plain(*a))
         q = idx.numel()
         b_ms, b_by = bound(q * 8 + 8 * torch.unique(idx >> 5).numel(), q * 8)
-        return dict(ms=cuda_time_ms(fk, reps), device_ms=device_ms_of(profile_calls(fk, 20),
-                    "rank_kernel"), plain_ms=cuda_time_ms(fp, max(reps // 5, 2)),
+        return dict(ms=cuda_time_ms(fk, reps), device_ms=queued_time_ms(fk, reps),
+                    profiler_device_ms=device_ms_of(profile_calls(fk, 20), "rank_kernel"),
+                    plain_ms=cuda_time_ms(fp, max(reps // 5, 2)),
                     bound_ms=b_ms, bound_by=b_by, q=q)
 
     def rmq_timing(ix, lo, hi, reps):
@@ -958,8 +1025,9 @@ def primitive_kernel_checks(svc, large, wm_args):
         q = lo.numel()
         cells, heads, _ = rmq_reads(*a)
         b_ms, b_by = bound(q * 12 + 4 * cells + 4 * heads, q * 16)
-        return dict(ms=cuda_time_ms(fk, reps), device_ms=device_ms_of(profile_calls(fk, 20),
-                    "rmq_kernel"), plain_ms=cuda_time_ms(fp, max(reps // 5, 2)),
+        return dict(ms=cuda_time_ms(fk, reps), device_ms=queued_time_ms(fk, reps),
+                    profiler_device_ms=device_ms_of(profile_calls(fk, 20), "rmq_kernel"),
+                    plain_ms=cuda_time_ms(fp, max(reps // 5, 2)),
                     bound_ms=b_ms, bound_by=b_by, q=q)
 
     # -- times: the slice's shapes (wm_rank_batch's level-0 stream [lo; hi] of
@@ -982,14 +1050,404 @@ def primitive_kernel_checks(svc, large, wm_args):
         records.append(dict(
             name=name, route="cuda", source="src/repro_torch/csrc/retrieval_kernels.cu",
             replaces=line, launches=None, max_abs_err=err[name], mismatches=mism[name],
-            ms=sl["ms"], kernel_ms=sl["ms"], device_ms=sl["device_ms"], plain_ms=sl["plain_ms"],
+            ms=sl["ms"], kernel_ms=sl["ms"], device_ms=sl["device_ms"],
+            profiler_device_ms=sl["profiler_device_ms"], plain_ms=sl["plain_ms"],
             library_ms=None, bound_ms=sl["bound_ms"], bound_by=sl["bound_by"],
             shape=f"Q={sl['q']} (large index, n={wm.n}, rho={ix.nruns})",
             stream_q=st["q"], stream_ms=st["ms"], stream_device_ms=st["device_ms"],
+            stream_profiler_device_ms=st["profiler_device_ms"],
             stream_plain_ms=st["plain_ms"], stream_bound_ms=st["bound_ms"],
             stream_bound_by=st["bound_by"],
         ))
     return records
+
+
+def free_device_memory():
+    """Drop cached blocks so the next phase starts from what is live."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bf16_ulps(got, want) -> float:
+    """Largest |got - want| in bf16 ulps at each element's magnitude, the
+    magnitude floored at 2^-8 of ``want``'s largest (near zero an ulp is no
+    measure of a difference formed at the tensor's scale)."""
+    g, w = got.float(), want.float()
+    if w.numel() == 0:
+        return 0.0
+    mag = torch.clamp(w.abs(), min=max(float(w.abs().max()) * 2**-8, 1e-30))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+def max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def f32_params(params):
+    return {k: f32_params(v) if isinstance(v, dict) else v.float() for k, v in params.items()}
+
+
+def phase_lm(dev, fa, cfg, requests=LM_REQUESTS, long=LM_LONG, check_tokens=LM_CHECK_TOKENS,
+             check_steps=LM_CHECK_STEPS):
+    """Phase 5: prefill and greedy decode at full width, launch counts, and
+    the f32 checks off the kernel path.  Returns the launches, the runs'
+    numbers, per run layer 0's (q, k, v) for the kernel checks, and the
+    f32 checks' largest differences."""
+    import dataclasses
+
+    from repro_torch.models.transformer import (
+        _group_params, _qkv, forward_decode, forward_prefill, init_params,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers x d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} KV) x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{cfg.param_count():,} parameters, {nbytes / 1e9:.2f} GB in {cfg.param_dtype}; "
+        f"init {time.perf_counter() - t0:.2f} s")
+    qkv, runs = {}, {}
+    fa.launches = 0  # the LM serving path's run starts here
+    for label, (B, S, steps) in (("requests", requests), ("long", long)):
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        before = fa.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = forward_prefill(cfg, params, tokens, max_seq=S + steps)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        require(fa.launches - before == cfg.n_layers,
+                (label, "flash launches per prefill", fa.launches - before))
+        require(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                (label, "prefill logits"))
+        tok = logits.argmax(-1)
+        step_ms = []
+        for i in range(steps):
+            before = fa.launches
+            t0 = time.perf_counter()
+            if i < steps - 1:
+                logits, cache = forward_decode(cfg, params, tok, cache, S + i)
+                tok = logits.argmax(-1)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            else:  # the last step under the profiler (after one unprofiled run of
+                # it, which writes the same cache entries): where a step's time goes
+                out = {}
+
+                def step(t=S + i):
+                    out["logits"] = forward_decode(cfg, params, tok, cache, t)[0]
+
+                prof = profile_calls(step, 1)
+                logits = out["logits"]
+            require(fa.launches == before, (label, "flash launched in a decode step"))
+        require(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                (label, "decode logits"))
+        top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:3]
+        med = float(np.median(step_ms)) if step_ms else float("nan")
+        runs[label] = dict(
+            batch=B, prompt=S, steps=steps, prefill_s=prefill_s, prefill_tok_s=B * S / prefill_s,
+            decode_step_ms=step_ms, decode_median_ms=med, decode_tok_s=B * 1e3 / med,
+            last_step_wall_ms=prof["wall_ms"], last_step_device_ms=prof["device_ms"],
+            last_step_activities=prof["kernels_per_call"],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"[lm] {label}: {B} x {S} tokens, prefill {prefill_s:.3f} s "
+            f"({B * S / prefill_s:,.0f} tokens/s); {steps} decode steps, median "
+            f"{med:.2f} ms per step, one token per prompt ({B * 1e3 / med:,.1f} tokens/s; steps "
+            + " ".join(f"{x:.1f}" for x in step_ms) + f" ms); last step profiled: wall "
+            f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']} ms in "
+            f"{prof['kernels_per_call']:.0f} device activities, top "
+            + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top)
+            + f"; peak device memory {runs[label]['peak_gib']:.2f} GiB")
+        del logits, cache
+        # layer 0's attention inputs of this run, for the kernel check
+        x = params["embed"][tokens].to(cfg.act_dtype)
+        p0 = _group_params(params["blocks"]["pos0"], 0)
+        qkv[label] = _qkv(cfg, 0, p0, x, torch.arange(S, device=dev)[None, :])
+        del x
+    launches = {"flash_attention": fa.launches}
+    # where a prefill's time goes: the requests prompt once more, profiled
+    B, S, _ = requests
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    prof = profile_calls(lambda: forward_prefill(cfg, params, tokens), 1)
+    flash_ms = device_ms_of(prof, "flash_attention_kernel")
+    top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:5]
+    runs["requests"].update(profiled_prefill_wall_ms=prof["wall_ms"],
+                            profiled_prefill_device_ms=prof["device_ms"],
+                            profiled_prefill_flash_ms=flash_ms)
+    log(f"[lm] requests prefill profiled: wall {prof['wall_ms']:.2f} ms, device "
+        f"{prof['device_ms']} ms in {prof['kernels_per_call']:.0f} device activities, flash "
+        f"kernel {flash_ms} ms; top " + "; ".join(f"{k[:48]} {v:.3f}" for k, v in top))
+
+    # checks off the kernel path, in f32 (no TF32: torch's default matmul
+    # precision on CUDA is full f32)
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    p32 = f32_params(params)
+    del params
+    free_device_memory()
+    c32 = dataclasses.replace(cfg, param_dtype=torch.float32, act_dtype=torch.float32)
+    T = check_tokens
+    tokens = torch.randint(0, cfg.vocab, (1, T + check_steps), generator=gen, device=dev)
+    flash, cache = forward_prefill(c32, p32, tokens[:, :T], max_seq=T + check_steps)
+    xla, _ = forward_prefill(dataclasses.replace(c32, attention_impl="xla"), p32, tokens[:, :T])
+    err_xla = max_abs(flash, xla)
+    log(f"[lm] f32, 1 x {T}: flash path vs xla path, last-token logits max |diff| "
+        f"{err_xla:.3e} (max |logit| {float(xla.abs().max()):.3f}, tolerance {LM_F32_TOL})")
+    require(err_xla <= LM_F32_TOL, ("flash vs xla logits", err_xla))
+    errs = []
+    for i in range(check_steps):
+        dec, cache = forward_decode(c32, p32, tokens[:, T + i], cache, T + i)
+        pre, _ = forward_prefill(c32, p32, tokens[:, :T + i + 1])
+        errs.append(max_abs(dec, pre))
+    log(f"[lm] f32 decode steps vs forward_prefill of the tokens so far, max |diff| per step "
+        + " ".join(f"{e:.3e}" for e in errs) + f" (tolerance {LM_F32_TOL})")
+    require(max(errs) <= LM_F32_TOL, ("decode vs prefill logits", errs))
+    del p32, cache
+    free_device_memory()
+    return launches, runs, qkv, {"f32_flash_vs_xla": err_xla, "f32_decode_vs_prefill": max(errs)}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def flash_bound(B, H, H_kv, S_q, S_kv, Dh, causal, dtype):
+    """(ms, "bytes"/"operations"): causal work 2*B*H*S_q*S_kv*Dh flops
+    (full: twice) at the dtype's peak, or q, k, v and o once over HBM."""
+    flops = 2 * B * H * S_q * S_kv * Dh * (1 if causal else 2)
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * Dh * (2 * B * H * S_q + 2 * B * H_kv * S_kv)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def flash_kernel_checks(dev, qkv, reps=(20, 3)):
+    """The flash kernel against its plain version on phase 5's real inputs
+    and on edge shapes; times at phase 5's two shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    worst = {"f32": 0.0, "bf16_abs": 0.0, "bf16_ulps": 0.0}
+
+    def check(q, k, v, causal, label):
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        err = max_abs(got, want)
+        require(bool(torch.isfinite(got).all()), (label, "non-finite output"))
+        if q.dtype == torch.float32:
+            ok = torch.allclose(got, want, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
+            worst["f32"] = max(worst["f32"], err)
+            log(f"[flash] {label}: max |diff| {err:.3e}")
+            require(ok, (label, "flash kernel != plain version", err))
+        else:
+            u = bf16_ulps(got, want)
+            worst["bf16_abs"], worst["bf16_ulps"] = max(worst["bf16_abs"], err), \
+                max(worst["bf16_ulps"], u)
+            log(f"[flash] {label}: max |diff| {err:.3e}, {u:.2f} bf16 ulps")
+            require(u <= BF16_ULPS, (label, "flash kernel beyond 2 bf16 ulps", u))
+
+    views = {}
+    for label, (q, k, v) in qkv.items():
+        views[label] = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        B, S, H, Dh = q.shape
+        check(*views[label], True, f"layer 0 of the {label} run, B={B} S={S} bf16")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for (B, H, H_kv, S_q, S_kv, Dh, causal) in (
+            (2, 4, 2, 128, 128, 16, True), (1, 9, 3, 200, 200, 64, True),
+            (2, 4, 4, 77, 333, 128, True), (1, 2, 2, 100, 300, 128, False),
+            (1, 6, 2, 129, 129, 128, False), (1, 24, 8, 1000, 1000, 128, True),
+            (1, 3, 1, 1, 70, 64, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(B, h, s, Dh, generator=gen, device=dev).mul_(0.5).to(dtype)
+                       for h, s in ((H, S_q), (H_kv, S_kv), (H_kv, S_kv)))
+            check(q, k, v, causal, f"B={B} H={H} H_kv={H_kv} S_q={S_q} S_kv={S_kv} Dh={Dh} "
+                  f"{'causal' if causal else 'full'} {str(dtype)[6:]}")
+    wide, q = torch.zeros(1, 2, 8, 136, device=dev), torch.zeros(1, 2, 8, 64, device=dev)
+    for bad, what in (((wide, wide, wide), "head dim 136"),
+                      ((q, q[:, :, :4], q[:, :, :4]), "causal S_kv < S_q")):
+        try:
+            flash_attention(*bad, causal=True)
+        except ValueError:
+            pass
+        else:
+            require(False, ("flash_attention took", what))
+
+    records = {}
+    for label, n in zip(("requests", "long"), reps):
+        qt, kt, vt = views[label]
+        B, H, S, Dh = qt.shape
+        fk = lambda: flash_attention(qt, kt, vt, causal=True)  # noqa: E731
+        fp = lambda: flash_attention_plain(qt, kt, vt, causal=True)  # noqa: E731
+        fl = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                    enable_gqa=True)
+        lib_err = max_abs(fk(), fl())
+        b_ms, b_by = flash_bound(B, H, kt.shape[1], S, S, Dh, True, qt.dtype)
+        records[label] = dict(
+            ms=cuda_time_ms(fk, n), device_ms=queued_time_ms(fk, n),
+            profiler_device_ms=device_ms_of(profile_calls(fk, 2), "flash_attention_kernel"),
+            plain_ms=cuda_time_ms(fp, max(n // 5, 1)), library_ms=cuda_time_ms(fl, n),
+            library_device_ms=queued_time_ms(fl, n),
+            bound_ms=b_ms, bound_by=b_by, library_max_abs_diff=lib_err,
+            shape=f"B={B} H={H} H_kv={kt.shape[1]} S_q=S_kv={S} Dh={Dh} causal bf16")
+        r = records[label]
+        log(f"[flash] {label} shape: kernel {r['ms']:.3f} ms (device {r['device_ms']:.3f} ms; "
+            f"profiler {r['profiler_device_ms']}), plain {r['plain_ms']:.3f} ms, SDPA "
+            f"{r['library_ms']:.3f} ms (device {r['library_device_ms']:.3f}), bound "
+            f"{b_ms:.4f} ms ({b_by}); kernel vs SDPA max |diff| {lib_err:.3e}")
+    main = records["requests"]
+    return dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/model_kernels.cu",
+        replaces="src/repro/kernels/flash_attention.py:94", launches=None,
+        max_abs_err=max(worst["f32"], worst["bf16_abs"]), max_f32_err=worst["f32"],
+        max_bf16_ulps=worst["bf16_ulps"], ms=main["ms"], kernel_ms=main["ms"],
+        device_ms=main["device_ms"], profiler_device_ms=main["profiler_device_ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        library_device_ms=main["library_device_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], shape=main["shape"],
+        library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True)",
+        **{f"long_{k}": v for k, v in records["long"].items()})
+
+
+def padded_bags(gen, rows, B, L, dev):
+    """int32 [B, L] indices into ``rows`` rows; for L > 1, each bag has a
+    seeded length in 1..L and -1 padding after it."""
+    idx = torch.randint(0, rows, (B, L), generator=gen, device=dev, dtype=torch.int32)
+    if L > 1:
+        lens = torch.randint(1, L + 1, (B, 1), generator=gen, device=dev)
+        idx = torch.where(torch.arange(L, device=dev)[None, :] < lens, idx, -1)
+    return idx.contiguous()
+
+
+def csr_of(idx):
+    """The padded bags as (flat int64 indices, int64 offsets of each bag)."""
+    valid = idx >= 0
+    offsets = torch.zeros(idx.shape[0], dtype=torch.int64, device=idx.device)
+    offsets[1:] = torch.cumsum(valid.sum(1), 0)[:-1]
+    return idx[valid].long(), offsets
+
+
+def time_embedding_bag(eb, t, idx, dt, reps):
+    """Times of the kernel, its plain version and ``F.embedding_bag`` (CSR
+    form of the same bags, ``sum``) on one table and batch, with the
+    byte bound of the rows these bags gather."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+
+    (B, L), (rows, dim) = idx.shape, t.shape
+    flat, offsets = csr_of(idx)
+    fk = lambda: eb(t, idx)  # noqa: E731
+    fp = lambda: embedding_bag_plain(t, idx)  # noqa: E731
+    fl = lambda: F.embedding_bag(flat, t, offsets, mode="sum")  # noqa: E731
+    lib_err = max_abs(fk(), fl())
+    nbytes = (torch.unique(flat).numel() * dim * t.element_size() + idx.numel() * 4
+              + B * dim * t.element_size())
+    tb, to = nbytes / HBM_BYTES_PER_S, flat.numel() * dim / F32_FLOPS_PER_S
+    r = dict(
+        ms=cuda_time_ms(fk, reps), device_ms=queued_time_ms(fk, reps),
+        profiler_device_ms=device_ms_of(profile_calls(fk, 5), "embedding_bag_kernel"),
+        plain_ms=cuda_time_ms(fp, max(reps // 5, 2)), library_ms=cuda_time_ms(fl, reps),
+        library_device_ms=queued_time_ms(fl, reps),
+        bound_ms=max(tb, to) * 1e3, bound_by="bytes" if tb >= to else "operations",
+        library_max_abs_diff=lib_err, entries=flat.numel(),
+        shape=f"V={rows} D={dim} {dt} B={B} L={L} sum, {flat.numel()} entries")
+    log(f"[embag] {r['shape']}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms; "
+        f"profiler {r['profiler_device_ms']}), plain {r['plain_ms']:.3f} ms, "
+        f"F.embedding_bag {r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}), "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel vs library max |diff| "
+        f"{lib_err:.3e}")
+    return r
+
+
+def phase_embedding_bag(dev, eb, rows=EMB_ROWS, dim=EMB_DIM, batches=EMB_BATCHES,
+                        lengths=EMB_LENGTHS, reps=20):
+    """Phase 6: the embedding-bag path, its checks and times."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    t0 = time.perf_counter()
+    table = torch.randn(rows, dim, generator=gen, device=dev)
+    cases = [(B, L) for B in batches for L in lengths]
+    bags = {c: padded_bags(gen, rows, *c, dev) for c in cases}
+    torch.cuda.synchronize()
+    log(f"[embag] table {rows:,} x {dim} f32 ({table.numel() * 4 / 1e9:.2f} GB), bags "
+        + ", ".join(f"B={B} L={L}" for B, L in cases) + f"; set-up {time.perf_counter() - t0:.2f} s")
+    outs = {}
+    eb.launches = 0  # the embedding-bag path's run starts here
+    tables = {"f32": table}
+    for dt in ("f32", "bf16"):
+        if dt == "bf16":
+            tables["bf16"] = table.to(torch.bfloat16)
+        for c in cases:
+            for mode in ("sum", "mean"):
+                out = eb(tables[dt], bags[c], mode=mode)
+                require(out.shape == (c[0], dim) and out.dtype == tables[dt].dtype, (dt, c, mode))
+                outs[(dt, c, mode)] = out
+    torch.cuda.synchronize()
+    launches = {"embedding_bag": eb.launches}
+    require(eb.launches == len(outs), launches)
+
+    worst = {"f32": 0.0, "bf16_abs": 0.0, "bf16_ulps": 0.0}
+
+    def compare(got, t, idx, mode, label):
+        want = embedding_bag_plain(t, idx, mode=mode)
+        err = max_abs(got, want)
+        if t.dtype == torch.float32:
+            worst["f32"] = max(worst["f32"], err)
+            require(torch.allclose(got, want, rtol=BAG_F32_TOL, atol=BAG_F32_TOL),
+                    (label, "embedding bag != plain version", err))
+            return f"max |diff| {err:.3e}"
+        u = bf16_ulps(got, want)
+        worst["bf16_abs"], worst["bf16_ulps"] = max(worst["bf16_abs"], err), \
+            max(worst["bf16_ulps"], u)
+        require(u <= BF16_ULPS, (label, "embedding bag beyond 2 bf16 ulps", u))
+        return f"max |diff| {err:.3e}, {u:.2f} bf16 ulps"
+
+    for (dt, c, mode), out in outs.items():
+        log(f"[embag] {dt} B={c[0]} L={c[1]} {mode}: "
+            + compare(out, tables[dt], bags[c], mode, (dt, c, mode)))
+    # edge bags: all padding, one index, a repeated index, the last rows
+    # (offsets past 2^31 elements), and no columns of indices at all
+    last = rows - 1
+    edge = torch.tensor([[-1, -1, -1], [5, -1, -1], [7, 7, 7], [last, last - 1, -1],
+                         [-1, 3, -1], [0, last, 0]], dtype=torch.int32, device=dev)
+    for dt, t in tables.items():
+        for mode in ("sum", "mean"):
+            for idx in (edge, edge[:, :0].contiguous()):
+                got = eb(t, idx, mode=mode)
+                msg = compare(got, t, idx, mode, (dt, "edge", mode))
+                require(not got[0].any(), "an all-padding bag is not zero")
+                log(f"[embag] {dt} edge bags {tuple(idx.shape)} {mode}: {msg}")
+    require(torch.equal(eb(tables["f32"], edge[1:2, :1].contiguous()), tables["f32"][5:6]),
+            "a bag of one index is not that row")
+
+    records = {(dt, c): time_embedding_bag(eb, t, bags[c], dt, reps)
+               for dt, t in tables.items() for c in cases}
+    del tables, table, outs
+    free_device_memory()
+    main = records[("f32", (batches[0], lengths[-1]))]
+    record = dict(
+        name="embedding_bag", route="cuda", source="src/repro_torch/csrc/model_kernels.cu",
+        replaces="src/repro/kernels/embedding_bag.py:41", launches=None,
+        max_abs_err=max(worst["f32"], worst["bf16_abs"]), max_f32_err=worst["f32"],
+        max_bf16_ulps=worst["bf16_ulps"], kernel_ms=main["ms"],
+        library="torch.nn.functional.embedding_bag(flat, table, offsets, mode='sum')",
+        **{k: main[k] for k in ("ms", "device_ms", "profiler_device_ms", "plain_ms",
+                                "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                                "shape")},
+        others=[{"shape": r["shape"], **{k: r[k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}}
+            for r in records.values() if r is not main])
+    return launches, record
 
 
 def main() -> int:
@@ -998,7 +1456,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    import dataclasses
+
+    from repro_torch.configs import llama3_2_3b
     from repro_torch.kernels.backward_search import backward_search
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ilcp_list import ilcp_list
     from repro_torch.kernels.rank import rank
     from repro_torch.kernels.rmq import rmq
@@ -1024,6 +1487,23 @@ def main() -> int:
     records = kernel_checks(svc, full_batches, large)
     records += primitive_kernel_checks(svc, large, wm_args)
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
+    del svc, full_batches, large
+    free_device_memory()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama3_2_3b.config(), attention_impl="flash")
+    paths["lm_serve"], lm_runs, qkv, lm_checks = phase_lm(dev, flash_attention, cfg)
+    log(f"[lm] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records.append(flash_kernel_checks(dev, qkv))
+    records[-1].update(lm_checks)
+    del qkv
+    free_device_memory()
+    log(f"[flash] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["embedding_bag"], bag_record = phase_embedding_bag(dev, embedding_bag)
+    records.append(bag_record)
+    log(f"[embag] phase {time.perf_counter() - t0:.1f} s")
+    log("[lm] runs " + json.dumps(lm_runs))
     for r in records:
         # each kernel's launches on the paths that run it, each path counted
         # from 0 just before it ran

@@ -10,6 +10,12 @@ keep (Sada's unused filters) are ignored.
 ``service_from_numpy`` assembles a ``RetrievalService`` from such dicts, so
 the port's query path can be held against the reference on the identical
 index, separately from build parity.
+
+``lm_params_from_numpy`` and ``lm_cache_from_numpy`` do the same for the
+dense LM: the reference's parameter or KV-cache pytree as (nested) dicts of
+numpy arrays (bf16 arrays as the ``bfloat16`` numpy dtype the reference
+hands out) become the port's dict of tensors, so both packages compute the
+same function on the same weights.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from repro_torch.core.ilcp import ILCPIndex
 from repro_torch.core.pdl import PDLIndex
 from repro_torch.core.sada import SadaCount
 from repro_torch.core.suffix import Collection
+from repro_torch.models.transformer import LMConfig, param_shapes
 from repro_torch.serve.retrieval import RetrievalService
 
 
@@ -72,3 +79,39 @@ def service_from_numpy(coll: Collection, csa: dict, ilcp: dict, sada: dict,
         pdl_topk=None if pdl_topk is None else from_numpy(PDLIndex, pdl_topk, dev),
         **knobs,
     )
+
+
+def _float_tensor(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # no numpy dtype of its own: move the bits
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+def _float_tree(tree, shapes, dtype, device, path=""):
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{path or 'tree'}: expected keys {sorted(shapes)}, got {got}")
+        return {k: _float_tree(tree[k], shapes[k], dtype, device, f"{path}/{k}")
+                for k in shapes}
+    if tuple(np.shape(tree)) != tuple(shapes):
+        raise ValueError(f"{path}: expected shape {tuple(shapes)}, got {np.shape(tree)}")
+    return _float_tensor(tree, dtype, device)
+
+
+def lm_params_from_numpy(cfg: LMConfig, tree: dict, device="cuda") -> dict:
+    """The port's parameter dict from the reference's parameter pytree
+    (numpy leaves), in ``cfg.param_dtype``; keys and shapes are checked."""
+    return _float_tree(tree, param_shapes(cfg), cfg.param_dtype, resolve_device(device))
+
+
+def lm_cache_from_numpy(cfg: LMConfig, tree: dict, device="cuda") -> dict:
+    """The port's KV cache from the reference's cache pytree (numpy leaves
+    [G, B, S_max, K, Dh]), in ``cfg.act_dtype``."""
+    k = np.shape(tree["pos0"]["k"])
+    shape = (cfg.n_groups, *k[1:3], cfg.n_kv_heads, cfg.head_dim)
+    shapes = {f"pos{p}": {"k": shape, "v": shape} for p in range(cfg.period)}
+    return _float_tree(tree, shapes, cfg.act_dtype, resolve_device(device))

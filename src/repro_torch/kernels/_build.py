@@ -24,15 +24,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("retrieval_kernels.cu",)
+SOURCES = ("retrieval_kernels.cu", "model_kernels.cu")
 HEADERS = ("retrieval_core.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 #: C signatures of the exported launchers: (argtypes) -> int error code.
 SIGNATURES = {
@@ -40,6 +41,8 @@ SIGNATURES = {
     "rt_ilcp_list": [_VP] * 13 + [_I] * 7 + [_VP],
     "rt_rank": [_VP] * 4 + [_I] + [_VP],
     "rt_rmq": [_VP] * 5 + [_I] * 3 + [_VP],
+    "rt_flash_attention": [_VP] * 4 + [_I] * 8 + [_LL] * 12 + [_VP],
+    "rt_embedding_bag": [_VP] * 3 + [_I] * 5 + [_VP],
 }
 
 _lib = None
@@ -68,20 +71,35 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists;
-    return its path."""
+    return its path.  Each source is compiled by its own ``nvcc``, all
+    started together, and the objects are linked into one library."""
     lib_path = BUILD_DIR / f"librepro_torch_{source_hash()}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log.update(seconds=time.perf_counter() - t0,
-                     output=proc.stdout + proc.stderr)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                               str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    outputs = [p.communicate()[0] for p in procs]
+    build_log.update(output="".join(outputs))
+    failed = [(src, p.returncode, out) for src, p, out in zip(SOURCES, procs, outputs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src} ({rc}):\n{out}" for src, rc, out in failed))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    build_log.update(seconds=time.perf_counter() - t0)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -105,12 +123,19 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def check_operand(name: str, t, dims: int, device) -> None:
-    """A kernel operand must be a contiguous int32 tensor of ``dims``
-    dimensions on ``device``."""
-    if (t.device != device or t.dtype != torch.int32 or t.dim() != dims
-            or not t.is_contiguous()):
+def check_operand(name: str, t, dims: int, device, dtypes=(torch.int32,),
+                  inner_contiguous: bool = False) -> None:
+    """A kernel operand must be a tensor of one of ``dtypes`` with ``dims``
+    dimensions on ``device``, contiguous (or, with ``inner_contiguous``,
+    with a contiguous last dimension: the kernel takes the other strides)."""
+    ok = t.device == device and t.dtype in dtypes and t.dim() == dims
+    if ok:
+        ok = (t.stride(-1) == 1 or t.shape[-1] <= 1) if inner_contiguous \
+            else t.is_contiguous()
+    if not ok:
+        names = "/".join(str(d).removeprefix("torch.") for d in dtypes)
+        layout = "last-dimension-contiguous" if inner_contiguous else "contiguous"
         raise ValueError(
-            f"{name}: expected a contiguous int32 {dims}-D tensor on {device}, got "
+            f"{name}: expected a {layout} {names} {dims}-D tensor on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}"
         )

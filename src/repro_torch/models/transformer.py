@@ -1,0 +1,316 @@
+"""Llama-family decoder transformers, dense subset (counterpart of
+``repro.models.transformer``): the serving steps ``forward_prefill`` and
+``forward_decode`` of dense LMs (Llama 3.x, SmolLM).
+
+Parameters are a plain dict with the reference's keys and layouts:
+``embed`` [V, D], ``final_norm`` [D], ``lm_head`` [D, V] (absent when tied)
+and, per sub-layer position ``p`` of a group, ``blocks/pos{p}`` holding
+tensors stacked over the ``n_groups`` groups: ``attn_norm``/``ffn_norm``
+[G, D], ``wq`` [G, D, H, Dh], ``wk``/``wv`` [G, D, K, Dh], ``wo``
+[G, H, Dh, D], ``w_gate``/``w_up`` [G, D, F], ``w_down`` [G, F, D].  The KV
+cache is ``{pos{p}: {"k", "v"}}`` of [G, B, S_max, K, Dh].  Groups run as a
+Python loop (the reference's ``lax.scan``).
+
+Attention: GQA with RoPE on every layer of a dense (period-1) model.
+``attention_impl="flash"`` runs prefill attention through the hand-written
+kernel (``repro_torch.kernels.flash_attention``); ``"xla"`` is the
+reference's blockwise path in plain tensor code.  Decode attention is plain
+tensor code on both, as in the reference.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
+MoE (``_moe_ffn``, ``_moe_ffn_ep``), chunked-local attention, expert
+parallelism (``ep_mesh``) and the training step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.common import resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import apply_rope, rms_norm, swiglu
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int = 1
+    shared_expert: bool = True
+    d_ff_expert: Optional[int] = None  # defaults to d_ff
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: Optional[int] = None
+    moe: Optional[MoEConfig] = None
+    period: int = 1
+    local_positions: tuple = ()
+    local_chunk: int = 8192
+    rope_theta: float = 500000.0
+    tie_embeddings: bool = False
+    param_dtype: torch.dtype = torch.bfloat16
+    act_dtype: torch.dtype = torch.bfloat16
+    attention_impl: str = "xla"          # "xla" | "flash"
+    ep_mesh: Any = None
+    ep_dp_axes: tuple = ()
+    ep_fsdp: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def n_groups(self) -> int:
+        if self.n_layers % self.period:
+            raise ValueError(f"{self.n_layers} layers do not split into groups of {self.period}")
+        return self.n_layers // self.period
+
+    def param_count(self) -> int:
+        dh = self.head_dim
+        attn = self.d_model * dh * (self.n_heads + 2 * self.n_kv_heads) + (
+            self.n_heads * dh * self.d_model
+        )
+        if self.moe:
+            dff = self.moe.d_ff_expert or self.d_ff
+            ffn = 3 * self.d_model * dff * self.moe.n_experts
+            if self.moe.shared_expert:
+                ffn += 3 * self.d_model * self.d_ff
+            ffn += self.d_model * self.moe.n_experts  # router
+        else:
+            ffn = 3 * self.d_model * self.d_ff
+        per_layer = attn + ffn + 2 * self.d_model
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + self.d_model
+
+
+def _require_ported(cfg: LMConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported (ROADMAP A12.2)")
+    if cfg.local_positions:
+        raise NotImplementedError(
+            f"{cfg.name}: chunked-local attention is not ported (ROADMAP A12.3)")
+    if cfg.ep_mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: expert parallelism (ep_mesh) is not ported (ROADMAP A12.2)")
+    if cfg.attention_impl not in ("xla", "flash"):
+        raise ValueError(f"attention_impl must be 'xla' or 'flash', got {cfg.attention_impl!r}")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The parameter tree's shapes, keyed as the reference's ``init_params``."""
+    _require_ported(cfg)
+    d, dh, G = cfg.d_model, cfg.head_dim, cfg.n_groups
+    block = {
+        "attn_norm": (G, d),
+        "wq": (G, d, cfg.n_heads, dh),
+        "wk": (G, d, cfg.n_kv_heads, dh),
+        "wv": (G, d, cfg.n_kv_heads, dh),
+        "wo": (G, cfg.n_heads, dh, d),
+        "ffn_norm": (G, d),
+        "w_gate": (G, d, cfg.d_ff),
+        "w_up": (G, d, cfg.d_ff),
+        "w_down": (G, cfg.d_ff, d),
+    }
+    shapes = {
+        "embed": (cfg.vocab, d),
+        "final_norm": (d,),
+        "blocks": {f"pos{p}": dict(block) for p in range(cfg.period)},
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab)
+    return shapes
+
+
+def init_params(cfg: LMConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Random parameters at ``cfg``'s widths in ``cfg.param_dtype``: norms
+    are ones, every other tensor N(0, 0.02^2) drawn from ``generator``
+    (a generator of ``device``; any generator for ``"meta"``).  The
+    reference's layout; its random numbers differ (``jax.random``)."""
+    dev = resolve_device(device)
+
+    def make(name, shape):
+        if isinstance(shape, dict):
+            return {k: make(k, s) for k, s in shape.items()}
+        t = torch.empty(shape, dtype=cfg.param_dtype, device=dev)
+        if name.endswith("norm"):
+            return t.fill_(1.0)
+        return t.normal_(0.0, 0.02, generator=generator)
+
+    return {k: make(k, s) for k, s in param_shapes(cfg).items()}
+
+
+def _head(cfg: LMConfig, params):
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return head.to(cfg.act_dtype)
+
+
+def _group_params(block, g: int) -> dict:
+    return {name: w[g] for name, w in block.items()}
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _gqa_attention(cfg: LMConfig, q, k, v, q_block: int = 512):
+    """Causal attention, q [B, S, H, Dh], k/v [B, S, K, Dh] -> [B, S, H, Dh]
+    (the reference's ``causal_offset=0``, the only offset its callers pass).
+
+    ``"flash"``: the kernel, on [B, H, S, Dh] views of the same memory (no
+    copy, no repeat of the KV heads).  ``"xla"``: blockwise over query
+    chunks of ``q_block``; each chunk's logits are formed in the activation
+    dtype, scaled in f32, masked with -1e30, softmaxed in f32 and cast back
+    to the activation dtype before the PV product, as the reference's
+    ``chunk_attn``."""
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    rep = H // K
+    if cfg.attention_impl == "flash":
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=True)
+        return out.transpose(1, 2)
+
+    S_kv = k.shape[1]
+    qb = min(q_block, S)
+    if S % qb:
+        raise ValueError(f"sequence {S} is not a multiple of the query block {qb}")
+    kpos = torch.arange(S_kv, device=q.device)[None, :]
+    qg = q.reshape(B, S, K, rep, Dh)
+    out = torch.empty_like(q)
+    for s0 in range(0, S, qb):
+        qc = qg[:, s0:s0 + qb]
+        logits = torch.einsum("bqkrd,btkd->bkrqt", qc, k).float() * (Dh ** -0.5)
+        qpos = s0 + torch.arange(qb, device=q.device)[:, None]
+        logits = torch.where(kpos <= qpos, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out[:, s0:s0 + qb] = torch.einsum("bkrqt,btkd->bqkrd", probs, v).reshape(B, qb, H, Dh)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _project(x, w):
+    """x [..., D] @ w [D, *rest] -> [..., *rest]."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _attn_out(attn, wo):
+    """attn [..., H, Dh] contracted with wo [H, Dh, D] -> [..., D]."""
+    H, Dh, D = wo.shape
+    return attn.reshape(*attn.shape[:-2], H * Dh) @ wo.reshape(H * Dh, D)
+
+
+def _qkv(cfg: LMConfig, pos: int, p, x, positions):
+    """A layer's normed q [B, S, H, Dh] and k, v [B, S, K, Dh], RoPE
+    applied on dense (period-1) models."""
+    h = rms_norm(x, p["attn_norm"])
+    q, k, v = _project(h, p["wq"]), _project(h, p["wk"]), _project(h, p["wv"])
+    if pos in cfg.local_positions or cfg.period == 1:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _dense_ffn(cfg: LMConfig, p, x):
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _sublayer_train(cfg: LMConfig, pos: int, p, x, positions):
+    """One decoder layer over the full sequence (prefill): the new
+    residual stream and the layer's (k, v)."""
+    q, k, v = _qkv(cfg, pos, p, x, positions)
+    attn = _gqa_attention(cfg, q, k, v)
+    x = x + _attn_out(attn, p["wo"])
+    x = x + _dense_ffn(cfg, p, rms_norm(x, p["ffn_norm"]))
+    return x, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode with KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, device="cuda") -> dict:
+    """A zero KV cache in ``cfg.act_dtype``: ``{pos{p}: {"k", "v"}}`` of
+    [G, batch, max_seq, K, Dh]."""
+    dev = resolve_device(device)
+    _require_ported(cfg)
+    shape = (cfg.n_groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {f"pos{p}": {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
+                        "v": torch.zeros(shape, dtype=cfg.act_dtype, device=dev)}
+            for p in range(cfg.period)}
+
+
+def forward_prefill(cfg: LMConfig, params, tokens, max_seq: int | None = None):
+    """Full-sequence forward of tokens [B, S]: (last-token logits [B, V],
+    KV cache).  The cache holds ``max_seq`` positions (default S); positions
+    S.. are zero, ready for ``forward_decode``."""
+    _require_ported(cfg)
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+    x = params["embed"][tokens].to(cfg.act_dtype)
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    for g in range(cfg.n_groups):
+        for pos in range(cfg.period):
+            key = f"pos{pos}"
+            p = _group_params(params["blocks"][key], g)
+            x, (k, v) = _sublayer_train(cfg, pos, p, x, positions)
+            cache[key]["k"][g, :, :S] = k
+            cache[key]["v"][g, :, :S] = v
+    x = rms_norm(x, params["final_norm"])
+    return x[:, -1] @ _head(cfg, params), cache
+
+
+def _sublayer_decode(cfg: LMConfig, pos: int, p, x, cache_kv, t: int):
+    """One layer, one new token.  x [B, D]; cache k/v [B, S_max, K, Dh],
+    written in place at position t."""
+    B = x.shape[0]
+    dh, K = cfg.head_dim, cfg.n_kv_heads
+    q, k, v = _qkv(cfg, pos, p, x[:, None], torch.full((1, 1), t, device=x.device))
+    ck, cv = cache_kv["k"], cache_kv["v"]
+    ck[:, t] = k[:, 0].to(ck.dtype)
+    cv[:, t] = v[:, 0].to(cv.dtype)
+
+    qg = q.reshape(B, K, cfg.n_heads // K, dh)
+    logits = torch.einsum("bkrd,btkd->bkrt", qg, ck).float() * (dh ** -0.5)
+    valid = torch.arange(ck.shape[1], device=x.device) <= t
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    attn = torch.einsum("bkrt,btkd->bkrd", probs, cv).reshape(B, cfg.n_heads, dh)
+    x = x + _attn_out(attn, p["wo"])
+    return x + _dense_ffn(cfg, p, rms_norm(x, p["ffn_norm"]))
+
+
+def forward_decode(cfg: LMConfig, params, token, cache, t: int):
+    """One decode step: token [B] at position ``t``.  Returns (logits
+    [B, V], cache).  The cache is updated in place (position t of every
+    layer) and returned as the same object."""
+    _require_ported(cfg)
+    x = params["embed"][token].to(cfg.act_dtype)
+    for g in range(cfg.n_groups):
+        for pos in range(cfg.period):
+            key = f"pos{pos}"
+            kv = {name: c[g] for name, c in cache[key].items()}
+            x = _sublayer_decode(cfg, pos, _group_params(params["blocks"][key], g), x, kv, t)
+    x = rms_norm(x, params["final_norm"])
+    return x @ _head(cfg, params), cache

@@ -92,6 +92,19 @@ def test_entry_points_default_to_the_card():
     assert svc.list_docs(["ab", "ca"]) == [[0], [0, 1]]
     assert np.asarray(svc.plan(["zz"])["occ"]).tolist() == [0]
 
+    from repro_torch.configs import llama3_2_3b
+    from repro_torch.models.transformer import init_cache, init_params
+
+    cfg = llama3_2_3b.reduced_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert params["embed"].device.type == "cpu" and params["embed"].shape == (512, 64)
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    assert cache["pos0"]["k"].shape == (4, 1, 8, 2, 16) and not cache["pos0"]["v"].any()
+
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     if torch.cuda.is_available():
