@@ -6,9 +6,11 @@ Run from the repository root with no arguments:
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. Device and build: the card's name and power limit, then the six CUDA
+1. Device and build: the card's name and power limit, then the CUDA
    kernels built from ``src/repro_torch/csrc`` with nvcc for sm_90a (one
-   nvcc per source, run together).
+   nvcc per source, run together): the six TPU kernels' counterparts, flash
+   attention as two kernels (Hopper and SIMT routes); ptxas's registers and
+   spills of the flash kernels.
 2. Full path: ``RetrievalService`` built on the card for dna-p001 at
    scale 3.2 (n = 1,024,320, d = 320) without the top-k PDL; ``plan``,
    ``count`` and ``list_docs`` (engines auto, ilcp, brute, pdl) on batches
@@ -44,13 +46,16 @@ Phases (any failure exits non-zero; nothing is caught):
    (a) 4 prompts of 2,048 tokens: one ``forward_prefill`` into a cache of
    2,080 positions, then 32 greedy ``forward_decode`` steps; (b) 1 prompt of
    32,768 tokens (the registry's ``prefill_32k`` length at batch 1), then 8
-   steps.  28 flash launches per prefill, none per decode step.  Checks off
-   the kernel path, in f32 at the same width on 1 x 2,048 tokens: the flash
-   path's logits against the ``"xla"`` path's, and 4 decode steps against
-   ``forward_prefill`` of the tokens so far.  Then the flash kernel against
-   its plain version on layer 0's q/k/v of (a) and (b) and on edge shapes
-   (head dims 16/64/128, ragged S, S_kv > S_q, full attention, GQA), timed
-   beside ``scaled_dot_product_attention`` as a yardstick.
+   steps.  28 flash launches per prefill, all on the Hopper kernel (TMA,
+   ``wgmma``, split P), none per decode step; the bf16 last-token logits
+   of the same prompts through the SIMT kernel, their gap reported.  Checks
+   off the kernel path, in f32 at the same width on 1 x 2,048 tokens (the
+   SIMT kernel): the flash path's logits against the ``"xla"`` path's, and
+   4 decode steps against ``forward_prefill`` of the tokens so far.  Then
+   both flash kernels against the plain version on layer 0's q/k/v of (a)
+   and (b) and on edge shapes (head dims 16/64/128, ragged S, S_kv > S_q,
+   full attention, GQA, a misaligned view that only the SIMT kernel
+   takes), timed beside ``scaled_dot_product_attention`` as a yardstick.
 6. Embedding bag on a 39,979,771 x 128 table (the largest MLPerf DLRM
    table, 20.5 GB in f32, then in bf16): bags of B = 65,536 and 512, one
    index each and 1..32 indices padded to 32, ``sum`` and ``mean``; each
@@ -63,9 +68,10 @@ the last line ``{"ok": true, "device": {...}}``.
 Tolerances of the kernel checks: the four index kernels are bit-identical
 to their plain versions.  Flash attention in f32 within 2e-5 and embedding
 bag in f32 within 1e-6 (the reference's own kernel tests); in bf16 both
-within 2 bf16 ulps of the plain version (both compute in f32 and round
-once; ulps are counted at each element's magnitude, floored at 2^-8 of the
-tensor's largest).  The LM checks hold f32 logits within 1e-3 (summation
+within 2 bf16 ulps of the plain version (they compute in f32, the Hopper
+flash kernel with P split into two bf16 parts, and round once; ulps are
+counted at each element's magnitude, floored at 2^-8 of the tensor's
+largest).  The LM checks hold f32 logits within 1e-3 (summation
 order through 28 layers; logits reach about 5).
 """
 
@@ -334,6 +340,22 @@ def phase_build():
     for line in _build.build_log.get("output", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("[ptxas]", line.strip())
+    report = _build.build_log.get("ptxas", {})
+    flash = {kernel_label(k): v for k, v in report.items() if "flash" in k}
+    log(f"[ptxas] flash kernels: {json.dumps(flash)}; warnings: {report.get('warnings')}")
+    return {"kernels": flash, "warnings": report.get("warnings", []), "build_s": seconds}
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_hopper_kernel<128>`` or ``flash_attention_kernel<bf16,64>``
+    for a mangled flash kernel name."""
+    import re
+
+    m = re.search(r"(?<=\d)(flash_[a-z_]*kernel)I(\w*?)EE", mangled)
+    if not m:
+        return mangled
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Li", "")
+    return f"{m.group(1)}<{'f32,' + args[1:] if args.startswith('f') else args}>"
 
 
 def phase_full_path(dev, bs, il):
@@ -1111,12 +1133,12 @@ def phase_lm(dev, fa, cfg, requests=LM_REQUESTS, long=LM_LONG, check_tokens=LM_C
         f"({cfg.n_kv_heads} KV) x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
         f"{cfg.param_count():,} parameters, {nbytes / 1e9:.2f} GB in {cfg.param_dtype}; "
         f"init {time.perf_counter() - t0:.2f} s")
-    qkv, runs = {}, {}
-    fa.launches = 0  # the LM serving path's run starts here
+    qkv, runs, prompts, prefill_logits = {}, {}, {}, {}
+    fa.launches = fa.hopper_launches = 0  # the LM serving path's run starts here
     for label, (B, S, steps) in (("requests", requests), ("long", long)):
         tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
         torch.cuda.reset_peak_memory_stats()
-        before = fa.launches
+        before, hopper_before = fa.launches, fa.hopper_launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = forward_prefill(cfg, params, tokens, max_seq=S + steps)
@@ -1124,12 +1146,15 @@ def phase_lm(dev, fa, cfg, requests=LM_REQUESTS, long=LM_LONG, check_tokens=LM_C
         prefill_s = time.perf_counter() - t0
         require(fa.launches - before == cfg.n_layers,
                 (label, "flash launches per prefill", fa.launches - before))
+        require(fa.hopper_launches - hopper_before == cfg.n_layers,
+                (label, "Hopper flash launches per bf16 prefill", fa.hopper_launches - hopper_before))
         require(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
                 (label, "prefill logits"))
+        prompts[label], prefill_logits[label] = tokens, logits.float()
         tok = logits.argmax(-1)
         step_ms = []
         for i in range(steps):
-            before = fa.launches
+            before, hopper_before = fa.launches, fa.hopper_launches
             t0 = time.perf_counter()
             if i < steps - 1:
                 logits, cache = forward_decode(cfg, params, tok, cache, S + i)
@@ -1145,7 +1170,8 @@ def phase_lm(dev, fa, cfg, requests=LM_REQUESTS, long=LM_LONG, check_tokens=LM_C
 
                 prof = profile_calls(step, 1)
                 logits = out["logits"]
-            require(fa.launches == before, (label, "flash launched in a decode step"))
+            require(fa.launches == before and fa.hopper_launches == hopper_before,
+                    (label, "flash launched in a decode step"))
         require(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
                 (label, "decode logits"))
         top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:3]
@@ -1171,11 +1197,35 @@ def phase_lm(dev, fa, cfg, requests=LM_REQUESTS, long=LM_LONG, check_tokens=LM_C
         qkv[label] = _qkv(cfg, 0, p0, x, torch.arange(S, device=dev)[None, :])
         del x
     launches = {"flash_attention": fa.launches}
+    hopper_launches = fa.hopper_launches
+    require(hopper_launches == fa.launches, ("flash launches off the Hopper kernel",
+                                             fa.launches, hopper_launches))
+    # the same prompts through the SIMT kernel (route forced in the model's
+    # call, after the counted run): how far the two kernels' bf16 logits lie
+    # apart.  Reported, not held to a bound: bf16 activations through 28
+    # layers amplify one-ulp attention differences.
+    import functools
+
+    import repro_torch.models.transformer as transformer
+
+    hopper_fa = transformer.flash_attention
+    transformer.flash_attention = functools.partial(hopper_fa, route="simt")
+    try:
+        for label, tokens in prompts.items():
+            simt_logits, _ = forward_prefill(cfg, params, tokens)
+            gap = max_abs(prefill_logits[label], simt_logits)
+            runs[label]["bf16_logits_gap_hopper_vs_simt"] = gap
+            log(f"[lm] {label}: bf16 last-token logits, Hopper kernel vs SIMT kernel, max |diff| "
+                f"{gap:.3e} (max |logit| {float(simt_logits.abs().max()):.3f})")
+            del simt_logits
+    finally:
+        transformer.flash_attention = hopper_fa
+    del prefill_logits
     # where a prefill's time goes: the requests prompt once more, profiled
     B, S, _ = requests
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
     prof = profile_calls(lambda: forward_prefill(cfg, params, tokens), 1)
-    flash_ms = device_ms_of(prof, "flash_attention_kernel")
+    flash_ms = device_ms_of(prof, "flash_hopper_kernel")
     top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:5]
     runs["requests"].update(profiled_prefill_wall_ms=prof["wall_ms"],
                             profiled_prefill_device_ms=prof["device_ms"],
@@ -1209,7 +1259,8 @@ def phase_lm(dev, fa, cfg, requests=LM_REQUESTS, long=LM_LONG, check_tokens=LM_C
     require(max(errs) <= LM_F32_TOL, ("decode vs prefill logits", errs))
     del p32, cache
     free_device_memory()
-    return launches, runs, qkv, {"f32_flash_vs_xla": err_xla, "f32_decode_vs_prefill": max(errs)}
+    return launches, runs, qkv, {"f32_flash_vs_xla": err_xla, "f32_decode_vs_prefill": max(errs),
+                                 "hopper_launches": hopper_launches}
 
 
 def _leaves(tree):
@@ -1217,10 +1268,16 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def flash_bound(B, H, H_kv, S_q, S_kv, Dh, causal, dtype):
-    """(ms, "bytes"/"operations"): causal work 2*B*H*S_q*S_kv*Dh flops
-    (full: twice) at the dtype's peak, or q, k, v and o once over HBM."""
-    flops = 2 * B * H * S_q * S_kv * Dh * (1 if causal else 2)
+def flash_flops(B, H, S_q, S_kv, Dh, causal):
+    """The function's flops: 2*B*H*S_q*S_kv*Dh for causal attention (half
+    of QK^T and PV), twice that for full attention."""
+    return 2 * B * H * S_q * S_kv * Dh * (1 if causal else 2)
+
+
+def flash_bound(B, H, H_kv, S_q, S_kv, Dh, causal, dtype, flop_factor=1.0):
+    """(ms, "bytes"/"operations"): ``flop_factor`` times the function's
+    flops at the dtype's peak, or q, k, v and o once over HBM."""
+    flops = flop_factor * flash_flops(B, H, S_q, S_kv, Dh, causal)
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = size * Dh * (2 * B * H * S_q + 2 * B * H_kv * S_kv)
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
@@ -1228,37 +1285,55 @@ def flash_bound(B, H, H_kv, S_q, S_kv, Dh, causal, dtype):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
+#: the Hopper kernel's tensor work: QK^T once and PV twice (split P)
+SPLIT_P_FLOP_FACTOR = 1.5
+
+
 def flash_kernel_checks(dev, qkv, reps=(20, 3)):
-    """The flash kernel against its plain version on phase 5's real inputs
-    and on edge shapes; times at phase 5's two shapes."""
+    """Both flash kernels against the plain version on phase 5's real inputs
+    and on edge shapes: every bf16 operand that ``flash_route`` sends to
+    the Hopper kernel also through the SIMT kernel, f32 through the SIMT
+    kernel; a view TMA cannot take goes to the SIMT kernel and raises only
+    where the Hopper kernel is asked for by name.  Times of both kernels at
+    phase 5's two shapes beside SDPA and the bounds."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain, flash_route,
+    )
 
-    worst = {"f32": 0.0, "bf16_abs": 0.0, "bf16_ulps": 0.0}
+    fa = flash_attention
+    worst = {"f32": 0.0, "bf16_abs": 0.0, "bf16_ulps": 0.0, "simt_bf16_ulps": 0.0}
 
     def check(q, k, v, causal, label):
-        got = flash_attention(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
-        err = max_abs(got, want)
-        require(bool(torch.isfinite(got).all()), (label, "non-finite output"))
-        if q.dtype == torch.float32:
-            ok = torch.allclose(got, want, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
-            worst["f32"] = max(worst["f32"], err)
-            log(f"[flash] {label}: max |diff| {err:.3e}")
-            require(ok, (label, "flash kernel != plain version", err))
-        else:
-            u = bf16_ulps(got, want)
-            worst["bf16_abs"], worst["bf16_ulps"] = max(worst["bf16_abs"], err), \
-                max(worst["bf16_ulps"], u)
-            log(f"[flash] {label}: max |diff| {err:.3e}, {u:.2f} bf16 ulps")
-            require(u <= BF16_ULPS, (label, "flash kernel beyond 2 bf16 ulps", u))
+        routes = ("hopper", "simt") if flash_route(q, k, v) == "hopper" else ("simt",)
+        for route in routes:
+            before, hopper_before = fa.launches, fa.hopper_launches
+            got = fa(q, k, v, causal=causal, route=route)
+            require((fa.launches - before, fa.hopper_launches - hopper_before)
+                    == (1, int(route == "hopper")), (label, route, "launch counts"))
+            err = max_abs(got, want)
+            require(bool(torch.isfinite(got).all()), (label, route, "non-finite output"))
+            if q.dtype == torch.float32:
+                ok = torch.allclose(got, want, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
+                worst["f32"] = max(worst["f32"], err)
+                log(f"[flash] {label} {route}: max |diff| {err:.3e}")
+                require(ok, (label, route, "flash kernel != plain version", err))
+            else:
+                u = bf16_ulps(got, want)
+                key = "bf16_ulps" if route == "hopper" else "simt_bf16_ulps"
+                worst["bf16_abs"], worst[key] = max(worst["bf16_abs"], err), max(worst[key], u)
+                log(f"[flash] {label} {route}: max |diff| {err:.3e}, {u:.2f} bf16 ulps")
+                require(u <= BF16_ULPS, (label, route, "flash kernel beyond 2 bf16 ulps", u))
+        return routes
 
     views = {}
     for label, (q, k, v) in qkv.items():
         views[label] = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         B, S, H, Dh = q.shape
-        check(*views[label], True, f"layer 0 of the {label} run, B={B} S={S} bf16")
+        routes = check(*views[label], True, f"layer 0 of the {label} run, B={B} S={S} bf16")
+        require(routes[0] == "hopper", (label, "phase 5's q/k/v are not routed to Hopper"))
     gen = torch.Generator(device=dev).manual_seed(2)
     for (B, H, H_kv, S_q, S_kv, Dh, causal) in (
             (2, 4, 2, 128, 128, 16, True), (1, 9, 3, 200, 200, 64, True),
@@ -1268,53 +1343,73 @@ def flash_kernel_checks(dev, qkv, reps=(20, 3)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(B, h, s, Dh, generator=gen, device=dev).mul_(0.5).to(dtype)
                        for h, s in ((H, S_q), (H_kv, S_kv), (H_kv, S_kv)))
-            check(q, k, v, causal, f"B={B} H={H} H_kv={H_kv} S_q={S_q} S_kv={S_kv} Dh={Dh} "
-                  f"{'causal' if causal else 'full'} {str(dtype)[6:]}")
+            routes = check(q, k, v, causal, f"B={B} H={H} H_kv={H_kv} S_q={S_q} S_kv={S_kv} "
+                           f"Dh={Dh} {'causal' if causal else 'full'} {str(dtype)[6:]}")
+            require(routes[0] == ("hopper" if dtype == torch.bfloat16 else "simt"),
+                    ("route of", B, H, S_q, Dh, dtype, routes))
+    # a bf16 view TMA cannot take (base address 2 bytes past a 16-byte
+    # boundary): the route says "simt", the wrapper runs the SIMT kernel, and
+    # only an explicit request for the Hopper kernel raises
+    base = torch.randn(1, 4, 200, 136, generator=gen, device=dev).mul_(0.5).bfloat16()
+    shifted = base[..., 1:129]
+    require(flash_route(shifted, shifted, shifted) == "simt", "misaligned view routed to Hopper")
+    check(shifted, shifted, shifted, True, "misaligned bf16 view, S=200 Dh=128")
     wide, q = torch.zeros(1, 2, 8, 136, device=dev), torch.zeros(1, 2, 8, 64, device=dev)
-    for bad, what in (((wide, wide, wide), "head dim 136"),
-                      ((q, q[:, :, :4], q[:, :, :4]), "causal S_kv < S_q")):
+    for bad, kw, what in (((wide, wide, wide), {}, "head dim 136"),
+                          ((q, q[:, :, :4], q[:, :, :4]), {}, "causal S_kv < S_q"),
+                          ((shifted, shifted, shifted), {"route": "hopper"},
+                           "a misaligned view on the Hopper kernel")):
+        before = (fa.launches, fa.hopper_launches)
         try:
-            flash_attention(*bad, causal=True)
+            fa(*bad, causal=True, **kw)
         except ValueError:
             pass
         else:
             require(False, ("flash_attention took", what))
+        require((fa.launches, fa.hopper_launches) == before, ("launched on", what))
 
     records = {}
     for label, n in zip(("requests", "long"), reps):
         qt, kt, vt = views[label]
         B, H, S, Dh = qt.shape
-        fk = lambda: flash_attention(qt, kt, vt, causal=True)  # noqa: E731
+        H_kv = kt.shape[1]
+        fk = lambda: fa(qt, kt, vt, causal=True)  # noqa: E731
+        fs = lambda: fa(qt, kt, vt, causal=True, route="simt")  # noqa: E731
         fp = lambda: flash_attention_plain(qt, kt, vt, causal=True)  # noqa: E731
         fl = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
                                                     enable_gqa=True)
         lib_err = max_abs(fk(), fl())
-        b_ms, b_by = flash_bound(B, H, kt.shape[1], S, S, Dh, True, qt.dtype)
-        records[label] = dict(
+        b_ms, b_by = flash_bound(B, H, H_kv, S, S, Dh, True, qt.dtype)
+        split_ms, _ = flash_bound(B, H, H_kv, S, S, Dh, True, qt.dtype, SPLIT_P_FLOP_FACTOR)
+        flops = flash_flops(B, H, S, S, Dh, True)
+        r = records[label] = dict(
             ms=cuda_time_ms(fk, n), device_ms=queued_time_ms(fk, n),
-            profiler_device_ms=device_ms_of(profile_calls(fk, 2), "flash_attention_kernel"),
+            profiler_device_ms=device_ms_of(profile_calls(fk, 2), "flash_hopper_kernel"),
+            simt_ms=cuda_time_ms(fs, max(n // 4, 1)), simt_device_ms=queued_time_ms(fs, max(n // 4, 1)),
             plain_ms=cuda_time_ms(fp, max(n // 5, 1)), library_ms=cuda_time_ms(fl, n),
             library_device_ms=queued_time_ms(fl, n),
-            bound_ms=b_ms, bound_by=b_by, library_max_abs_diff=lib_err,
-            shape=f"B={B} H={H} H_kv={kt.shape[1]} S_q=S_kv={S} Dh={Dh} causal bf16")
-        r = records[label]
-        log(f"[flash] {label} shape: kernel {r['ms']:.3f} ms (device {r['device_ms']:.3f} ms; "
-            f"profiler {r['profiler_device_ms']}), plain {r['plain_ms']:.3f} ms, SDPA "
-            f"{r['library_ms']:.3f} ms (device {r['library_device_ms']:.3f}), bound "
-            f"{b_ms:.4f} ms ({b_by}); kernel vs SDPA max |diff| {lib_err:.3e}")
+            bound_ms=b_ms, bound_by=b_by, split_p_bound_ms=split_ms, flops=flops,
+            library_max_abs_diff=lib_err,
+            shape=f"B={B} H={H} H_kv={H_kv} S_q=S_kv={S} Dh={Dh} causal bf16")
+        for key in ("device_ms", "simt_device_ms", "library_device_ms"):
+            r[key.replace("device_ms", "tflops")] = flops / r[key] / 1e9
+        log(f"[flash] {label} shape: Hopper kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, "
+            f"{r['tflops']:.1f} TFLOP/s; profiler {r['profiler_device_ms']}), SIMT kernel "
+            f"{r['simt_ms']:.3f} ms (device {r['simt_device_ms']:.3f} ms, {r['simt_tflops']:.1f} "
+            f"TFLOP/s), plain {r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms']:.4f} ms, {r['library_tflops']:.1f} TFLOP/s), bound "
+            f"{b_ms:.4f} ms ({b_by}; split P {split_ms:.4f} ms); Hopper kernel vs SDPA max "
+            f"|diff| {lib_err:.3e}")
     main = records["requests"]
     return dict(
-        name="flash_attention", route="cuda", source="src/repro_torch/csrc/model_kernels.cu",
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_hopper.cu",
         replaces="src/repro/kernels/flash_attention.py:94", launches=None,
+        flash_route="hopper", simt_source="src/repro_torch/csrc/model_kernels.cu",
         max_abs_err=max(worst["f32"], worst["bf16_abs"]), max_f32_err=worst["f32"],
-        max_bf16_ulps=worst["bf16_ulps"], ms=main["ms"], kernel_ms=main["ms"],
-        device_ms=main["device_ms"], profiler_device_ms=main["profiler_device_ms"],
-        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
-        library_device_ms=main["library_device_ms"],
-        bound_ms=main["bound_ms"], bound_by=main["bound_by"], shape=main["shape"],
-        library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
-                "enable_gqa=True)",
-        **{f"long_{k}": v for k, v in records["long"].items()})
+        max_bf16_ulps=worst["bf16_ulps"], simt_max_bf16_ulps=worst["simt_bf16_ulps"],
+        kernel_ms=main["ms"], library="torch.nn.functional.scaled_dot_product_attention("
+                                     "is_causal=True, enable_gqa=True)",
+        **main, **{f"long_{k}": v for k, v in records["long"].items()})
 
 
 def padded_bags(gen, rows, B, L, dev):
@@ -1469,7 +1564,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    phase_build()
+    build = phase_build()
     paths = {}
     t0 = time.perf_counter()
     svc, full_batches, paths["list"] = phase_full_path(dev, backward_search, ilcp_list)
@@ -1495,7 +1590,7 @@ def main() -> int:
     log(f"[lm] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     records.append(flash_kernel_checks(dev, qkv))
-    records[-1].update(lm_checks)
+    records[-1].update(lm_checks, ptxas=build["kernels"], ptxas_warnings=build["warnings"])
     del qkv
     free_device_memory()
     log(f"[flash] phase {time.perf_counter() - t0:.1f} s")

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("retrieval_kernels.cu", "model_kernels.cu")
+SOURCES = ("retrieval_kernels.cu", "model_kernels.cu", "flash_hopper.cu")
 HEADERS = ("retrieval_core.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,11 +43,13 @@ SIGNATURES = {
     "rt_rank": [_VP] * 4 + [_I] + [_VP],
     "rt_rmq": [_VP] * 5 + [_I] * 3 + [_VP],
     "rt_flash_attention": [_VP] * 4 + [_I] * 8 + [_LL] * 12 + [_VP],
+    "rt_flash_hopper": [_VP] * 4 + [_I] * 7 + [_LL] * 12 + [_VP],
     "rt_embedding_bag": [_VP] * 3 + [_I] * 5 + [_VP],
 }
 
 _lib = None
-#: what the last build printed (ptxas register / spill report) and took
+#: what the last build printed (``output``), its ptxas register / spill
+#: report per kernel (``ptxas``, see ``ptxas_report``) and its ``seconds``
 build_log: dict = {}
 
 
@@ -87,6 +90,7 @@ def build() -> Path:
              for src, obj in zip(SOURCES, objs)]
     outputs = [p.communicate()[0] for p in procs]
     build_log.update(output="".join(outputs))
+    build_log.update(ptxas=ptxas_report(build_log["output"]))
     failed = [(src, p.returncode, out) for src, p, out in zip(SOURCES, procs, outputs)
               if p.returncode != 0]
     if failed:
@@ -102,6 +106,27 @@ def build() -> Path:
         obj.unlink()
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def ptxas_report(output: str) -> dict:
+    """Per kernel (mangled name) of ``nvcc -Xptxas -v`` output: registers,
+    spill stores and loads and stack bytes; under ``"warnings"`` every
+    ptxas warning line (``setmaxnreg`` ignored, ``wgmma`` serialised, ...)."""
+    report, name = {"warnings": []}, None
+    for line in output.splitlines():
+        if "warning" in line and "ptxas" in line:
+            report["warnings"].append(line.strip())
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line):
+            name = m.group(1)
+            report.setdefault(name, {})
+        elif name and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                line)):
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def library() -> ctypes.CDLL:

@@ -8,10 +8,20 @@ plain version repeats the KV heads as the reference does, the kernel reads
 the shared head), and under ``causal`` only keys ``j <= i + S_kv - S_q``.
 The output has q's dtype.
 
-The kernel (``csrc/model_kernels.cu``, ``flash_attention_kernel``) takes f32
-and bf16, any S_q and S_kv (it masks the ragged tail itself) and head dims
-up to 128.  The reference's wrapper hands shapes that are not a multiple of
-its block to its plain reference; here every shape goes to the kernel.
+Two hand-written kernels serve the card, chosen by ``flash_route``, a rule
+on the operands (not a fallback: nothing catches a failed build or launch):
+
+- ``"hopper"`` (``csrc/flash_hopper.cu``, ``flash_hopper_kernel``): bf16
+  operands that TMA can describe; TMA-fed K/V tiles, ``wgmma`` products and
+  a split P that keeps the reference's f32 P to within one bf16 rounding.
+- ``"simt"`` (``csrc/model_kernels.cu``, ``flash_attention_kernel``): f32
+  (``wgmma`` has no f32 input, and TF32 would not hold the f32 tolerance)
+  and bf16 views that TMA cannot take; products in f32 on CUDA cores.
+
+Both take any S_q and S_kv (they mask the ragged tail themselves) and head
+dims up to 128.  The reference's wrapper hands shapes that are not a
+multiple of its block to its plain reference; here every shape goes to a
+kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +36,10 @@ MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 #: the kernel's grid puts batch x heads on its second axis
 MAX_BATCH_HEADS = 65535
+#: the routes of ``flash_route``
+ROUTES = ("hopper", "simt")
+#: TMA takes base addresses and strides in multiples of 16 bytes
+TMA_ALIGN = 16
 
 
 def _check_shapes(q, k, v, causal):
@@ -72,15 +86,49 @@ def flash_attention_plain(q, k, v, *, causal=True, q_block=1024):
     return out
 
 
-def flash_attention(q, k, v, *, causal=True):
+def flash_route(q, k, v) -> str:
+    """The kernel that takes these operands on the card: ``"hopper"`` when
+    q, k and v are all bf16 4-D tensors with a contiguous last dimension of
+    at most ``MAX_HEAD_DIM``, no empty dimension, and every base address and
+    every batch, head and row stride a multiple of ``TMA_ALIGN`` bytes (a
+    dimension of size 1 has no stride to check); ``"simt"`` otherwise (f32,
+    or a view TMA cannot describe).  Pure: reads shapes, strides, dtypes and
+    addresses only."""
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or t.dim() != 4 or 0 in t.shape:
+            return "simt"
+        if t.shape[-1] > MAX_HEAD_DIM or (t.stride(-1) != 1 and t.shape[-1] > 1):
+            return "simt"
+        if t.data_ptr() % TMA_ALIGN:
+            return "simt"
+        if any(n > 1 and (st * t.element_size()) % TMA_ALIGN
+               for n, st in zip(t.shape[:3], t.stride()[:3])):
+            return "simt"
+    return "hopper"
+
+
+def _tma_strides(t):
+    """Element strides of t's batch, head and row dimensions for a tensor
+    map; a dimension of size 1 is never stepped, so it gets the smallest
+    stride TMA takes."""
+    step = TMA_ALIGN // t.element_size()
+    return [st if n > 1 else step for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def flash_attention(q, k, v, *, causal=True, route=None):
     """Attention of q [B, H, S_q, Dh] over k, v [B, H_kv, S_kv, Dh]
     (``H % H_kv == 0``); returns [B, H, S_q, Dh] in q's dtype, laid out as
     q is.  Tensors may be strided views (a [B, S, H, Dh] activation seen as
     [B, H, S, Dh]) as long as the last dimension is contiguous.
 
-    On CUDA tensors this launches the kernel (counted in
-    ``flash_attention.launches``); on CPU tensors it runs the plain
+    On CUDA tensors this launches the kernel that ``flash_route`` names, or
+    the one ``route`` names ("simt" takes every operand; "hopper" raises
+    ValueError where ``flash_route`` says "simt").  Every launch counts in
+    ``flash_attention.launches``, the Hopper kernel's also in
+    ``flash_attention.hopper_launches``.  On CPU tensors it runs the plain
     version.  An empty output launches nothing."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"flash_attention: route {route!r} is none of {ROUTES}")
     dev = q.device
     if dev.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -94,18 +142,33 @@ def flash_attention(q, k, v, *, causal=True):
         raise ValueError(f"flash_attention: head dim {Dh} > {MAX_HEAD_DIM}")
     if B * H > MAX_BATCH_HEADS:
         raise ValueError(f"flash_attention: B * H = {B * H} > {MAX_BATCH_HEADS}")
+    chosen = flash_route(q, k, v)
+    if route == "hopper" and chosen != "hopper":
+        raise ValueError("flash_attention: TMA cannot take these views (flash_route says "
+                         "'simt'): bf16, 16-byte aligned base addresses and strides needed")
+    route = route or chosen
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = _build.library().rt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, H_kv, S_q, S_kv, Dh, int(causal), int(q.dtype == torch.bfloat16),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "flash_attention")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "hopper":
+        err = _build.library().rt_flash_hopper(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, H_kv, S_q, S_kv, Dh, int(causal),
+            *_tma_strides(q), *_tma_strides(k), *_tma_strides(v), *out.stride()[:3], stream,
+        )
+        _build.check(err, "flash_attention (hopper)")
+        flash_attention.hopper_launches += 1
+    else:
+        err = _build.library().rt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, H_kv, S_q, S_kv, Dh, int(causal), int(q.dtype == torch.bfloat16),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], stream,
+        )
+        _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.hopper_launches = 0

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
-* no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``,
-  ``jaxlib`` or ``repro``;
+* no module of ``src/repro_torch`` (nor ``chip_smoke.py``, nor the card
+  scripts of ``scripts/``) imports ``jax``, ``jaxlib`` or ``repro``;
 * every ``repro_torch`` module imports in a process where ``jax`` and
   ``repro`` cannot be imported;
 * the entry points default to the card and raise where CUDA is missing;
@@ -26,7 +26,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _imported_roots(path: Path):
