@@ -9,13 +9,15 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from ``src/repro_torch/csrc`` with nvcc for sm_90a (one
    nvcc per source, run together): the six TPU kernels' counterparts, flash
-   attention as two kernels (Hopper and SIMT routes); ptxas's registers and
+   attention as two kernels (Hopper and SIMT routes), the PDL gather (the
+   port's own kernel) and a pointer-chase probe; ptxas's registers and
    spills of the flash kernels.
 2. Full path: ``RetrievalService`` built on the card for dna-p001 at
    scale 3.2 (n = 1,024,320, d = 320) without the top-k PDL; ``plan``,
    ``count`` and ``list_docs`` (engines auto, ilcp, brute, pdl) on batches
    of 32 patterns, held against a host oracle from the port's own document
-   array, with the kernel launch counts each endpoint must make.
+   array, with the kernel launch counts each endpoint must make (one PDL
+   gather per ``list_docs`` of every engine).
 2b. Top-k and tf-idf on a ``RetrievalService`` with both PDLs for
    dna-p001 at scale 1.6 (n = 256,160, d = 160; the top-k PDL's host
    build, which keeps every internal node's list, does not finish at
@@ -26,7 +28,8 @@ Phases (any failure exits non-zero; nothing is caught):
    PDL cover to count the entries the gather takes); ``tfidf`` with two
    terms per query as the serving CLI builds them, ranked-AND and
    ranked-OR, held to a host float32 oracle with the same fold within
-   2 ulp.  Launch counts, per-batch latencies and each batch's engine mix.
+   2 ulp.  Launch counts (one PDL gather per ``topk`` and ``tfidf``),
+   per-batch latencies and each batch's engine mix.
 3. Large index, no PDL: suffix data, CSA, Sada and ILCP on the card for
    dna-p001 at scale 12.8 (n ~ 16.4M, d = 1,280); ``plan_queries`` and
    ``ilcp_list_docs_da_planned`` on 1,024 patterns in batches of 128.
@@ -37,10 +40,20 @@ Phases (any failure exits non-zero; nothing is caught):
    one RMQ launch per lockstep iteration (counted by a host replay).
 4. Kernels against their plain PyTorch versions on the card, on the real
    index arrays of phases 2 and 3 and on edge inputs: outputs must be
-   bit-identical.  Times with CUDA events after a warm-up; device times
-   by CUDA events around calls queued behind a spin kernel, the
-   profiler's beside them (it drops the device events of some windows);
-   rank and RMQ also on one stream of 2^22 queries.
+   bit-identical.  The PDL gather on phase 2's listing PDL and phase 2b's
+   top-k PDL at max_buf 4,096 and 64 and max_cover 1,024 and 4 (window,
+   expansion and cover truncation must all occur), each count held to a
+   host replay of the cover.  ``pdl_list_docs_batch``,
+   ``pdl_doc_freqs_batch`` and ``ilcp_list_docs_da_planned`` run once each
+   under ``torch.cuda.set_sync_debug_mode("error")``.  Times with CUDA
+   events after a warm-up; device times by CUDA events around calls queued
+   behind a spin kernel, the profiler's beside them (it drops the device
+   events of some windows); rank and RMQ also on one stream of 2^22
+   queries.  Bounds: bytes over the memory rate, and a latency bound, the
+   dependent global reads on the slowest query's path through the kernel,
+   each round at one dependent load's latency: an L1 hit's where the path
+   read the line before, else an L2 hit's, both measured by the probe (16
+   KB and 16 MB cycles; a 256 MB one beside them).
 5. LM serving: llama3.2-3b at full width and depth (28 x 3,072, 3.6B
    parameters, bf16, seeded random weights), ``attention_impl="flash"``.
    (a) 4 prompts of 2,048 tokens: one ``forward_prefill`` into a cache of
@@ -65,7 +78,7 @@ Phases (any failure exits non-zero; nothing is caught):
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
 
-Tolerances of the kernel checks: the four index kernels are bit-identical
+Tolerances of the kernel checks: the five index kernels are bit-identical
 to their plain versions.  Flash attention in f32 within 2e-5 and embedding
 bag in f32 within 1e-6 (the reference's own kernel tests); in bf16 both
 within 2 bf16 ulps of the plain version (they compute in f32, the Hopper
@@ -197,6 +210,50 @@ def device_ms_of(prof: dict, substr: str):
     return sum(hits) if hits else None
 
 
+def ceil_log2(x: int) -> int:
+    """Binary-search probes over x entries."""
+    return max(0, (int(x) - 1).bit_length())
+
+
+class Chain:
+    """The dependent global reads on one query's path through a kernel, in
+    rounds: the reads of a round are issued together, and the round waits
+    for them.  A round costs one L1 hit's latency when every 128-byte line
+    it reads (keys: array name and line) was read earlier on the same path,
+    else one L2 hit's: the path's latency bound is ``ns(lat)``."""
+
+    def __init__(self):
+        self.lines, self.l2, self.l1 = set(), 0, 0
+
+    def read(self, *keys):
+        fresh = any(k not in self.lines for k in keys)
+        self.lines.update(keys)
+        self.l2 += fresh
+        self.l1 += not fresh
+
+    def search(self, name, arr, x, right=False):
+        """``rt::lower_bound`` (``upper_bound`` with ``right``) over
+        int32 ``arr``, one round per probe."""
+        lo, hi = 0, len(arr)
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            self.read((name, mid >> 5))
+            if arr[mid] < x or (right and arr[mid] == x):
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    def ns(self, lat):
+        return self.l2 * lat["l2_ns"] + self.l1 * lat["l1_ns"]
+
+
+def longest(chains, lat):
+    """The slowest path of a batch: (latency bound in ms, its rounds)."""
+    c = max(chains, key=lambda x: x.ns(lat))
+    return c.ns(lat) * 1e-6, {"l2_rounds": c.l2, "l1_rounds": c.l1}
+
+
 def require(ok, msg="check failed"):
     """A check that stays in force under ``python -O``."""
     if not ok:
@@ -214,7 +271,9 @@ def reset_counts(kernels):
 
 
 def host_backward_search(words, prefix, zcount, base, pats, lens, n, sigma):
-    """Per-query backward search in numpy: (lo, hi, active symbol steps)."""
+    """Per-query backward search in numpy: (lo, hi, active symbol steps of
+    each query, each query's ``Chain``: its pattern row, then per active
+    symbol one round per level reading both ends' word and prefix)."""
     words = words.view(np.uint32)
     levels = words.shape[0]
 
@@ -223,18 +282,23 @@ def host_backward_search(words, prefix, zcount, base, pats, lens, n, sigma):
         mask = (1 << (pos & 31)) - 1
         return int(prefix[lvl, w]) + bin(int(words[lvl, w]) & mask).count("1")
 
-    los, his, steps = [], [], 0
-    for row, m in zip(pats, lens):
+    los, his, steps, chains = [], [], [], []
+    for q, (row, m) in enumerate(zip(pats, lens)):
         lo, hi = 0, n
+        steps.append(0)
+        chains.append(Chain())
+        chains[-1].read(("patterns", q))
         for t in range(int(m)):
             if lo >= hi:
                 break
-            steps += 1
+            steps[-1] += 1
             c = int(row[int(m) - 1 - t])
             if c < 0 or c >= sigma:
                 lo = hi = 0 if c < 0 else n
                 break
             for lvl in range(levels):
+                chains[-1].read(*((a, lvl, pos >> 10) for a in ("words", "prefix")
+                                  for pos in (lo, hi)))
                 bit = (c >> (levels - 1 - lvl)) & 1
                 r1p, r1q = rank1(lvl, lo), rank1(lvl, hi)
                 lo = lo - r1p if bit == 0 else int(zcount[lvl]) + r1p
@@ -243,23 +307,35 @@ def host_backward_search(words, prefix, zcount, base, pats, lens, n, sigma):
             hi += int(base[c])
         los.append(lo)
         his.append(max(lo, hi))
-    return np.asarray(los, np.int32), np.asarray(his, np.int32), steps
+    return np.asarray(los, np.int32), np.asarray(his, np.int32), steps, chains
 
 
 def host_ilcp_list(vilcp, table, run_starts, da, lo, hi, d, max_df):
     """The Fig-1 recursion per query in Python (the reference's trajectory):
-    (docs rows in discovery order, counts, pops, DA positions scanned, and
-    per query the iterations the batch-lockstep machine spends on it: one
-    per pop, or one per DA position a pop's run visits, plus the one in
-    which it finds nothing left to pop)."""
+    (docs rows in discovery order, counts, pops, DA positions scanned, per
+    query the iterations the batch-lockstep machine spends on it: one per
+    pop, or one per DA position a pop's run visits, plus the one in which it
+    finds nothing left to pop; and per query the ``Chain`` of the warp
+    kernel: the root runs' binary searches and RMQ, then per pop of a valid
+    interval its run_starts read and its DA reads, 32 positions a round, the
+    children's RMQs issued beside them)."""
     levels, rho = table.shape
     cap, max_pops = max_df + 4, 2 * max_df + 8
     starts = run_starts[:-1]
-    rows, cnts, pops_total, scanned, iters = [], [], 0, 0, []
+    rows, cnts, pops_total, scanned, iters, chains = [], [], 0, 0, [], []
     for a0, b0 in zip(lo.tolist(), hi.tolist()):
         stack = [(int(np.searchsorted(starts, a0, "right")) - 1,
                   int(np.searchsorted(starts, b0 - 1, "right")) - 1)]
         seen, out, pops, steps = set(), [], 0, 1
+        chain = Chain()
+        if a0 < b0 and stack[0][0] <= stack[0][1]:
+            chain.search("run_starts", starts, a0, right=True)
+            chain.search("run_starts", starts, b0 - 1, right=True)
+            a, b = min(max(stack[0][0], 0), rho - 1), min(max(stack[0][1], 0), rho - 1)
+            k = min(max(int(np.floor(np.log2(max(b - a + 1, 1)))), 0), levels - 1)
+            right = max(b - (1 << k) + 1, a)
+            chain.read(("table", k, a >> 5), ("table", k, right >> 5))
+            chain.read(("vilcp", int(table[k, a]) >> 5), ("vilcp", int(table[k, right]) >> 5))
         while stack and len(out) < max_df and pops < max_pops:
             a, b = stack.pop()
             pops += 1
@@ -271,8 +347,11 @@ def host_ilcp_list(vilcp, table, run_starts, da, lo, hi, d, max_df):
             ia, ib = int(table[k, a]), int(table[k, max(b - (1 << k) + 1, a)])
             r = ib if (vilcp[ib] < vilcp[ia] or (vilcp[ib] == vilcp[ia] and ib < ia)) else ia
             i, j = max(a0, int(run_starts[r])), min(b0, int(run_starts[r + 1]))
-            aborted, visits = False, 0
+            chain.read(("run_starts", r >> 5), ("run_starts", (r + 1) >> 5))
+            aborted, visits, k0 = False, 0, i
             while i < j and len(out) < max_df:
+                if (i - k0) % 32 == 0:
+                    chain.read(("da", i >> 5), ("da", min(i + 31, j - 1) >> 5))
                 g = int(da[i])
                 scanned += 1
                 visits += 1
@@ -291,10 +370,11 @@ def host_ilcp_list(vilcp, table, run_starts, da, lo, hi, d, max_df):
                 stack.append((a, r - 1))
         pops_total += pops
         iters.append(steps)
+        chains.append(chain)
         cnts.append(len(out))
         rows.append(out + [-1] * (max_df - len(out)))
     return (np.asarray(rows, np.int32).reshape(len(cnts), max_df),
-            np.asarray(cnts, np.int32), pops_total, scanned, iters)
+            np.asarray(cnts, np.int32), pops_total, scanned, iters, chains)
 
 
 def check_listing(docs, cnt, lo, hi, da, max_df, max_buf=None, sorted_rows=True):
@@ -358,7 +438,7 @@ def kernel_label(mangled: str) -> str:
     return f"{m.group(1)}<{'f32,' + args[1:] if args.startswith('f') else args}>"
 
 
-def phase_full_path(dev, bs, il):
+def phase_full_path(dev, bs, il, pg):
     from repro_torch.core.suffix import build_suffix_data
     from repro_torch.data.collections import (
         generate, paperlike_collections, random_substring_patterns,
@@ -382,32 +462,32 @@ def phase_full_path(dev, bs, il):
     da = data.da.cpu().numpy()
     max_df = min(MAX_DF, coll.d + 1)
 
-    kernels = (bs, il)
+    kernels = (bs, il, pg)
     batches = [pats[i:i + 32] for i in range(0, len(pats), 32)]
     lat = {}
     ilcp_nonempty = 0
     reset_counts(kernels)  # the main path's run starts here
     for batch in batches:
         def call(name, fn, *a, **kw):
-            before = (bs.launches, il.launches)
+            before = [k.launches for k in kernels]
             t = time.perf_counter()
             out = fn(*a, **kw)
             lat.setdefault(name, []).append(time.perf_counter() - t)
-            return out, (bs.launches - before[0], il.launches - before[1])
+            return out, tuple(k.launches - b for k, b in zip(kernels, before))
 
         plan, delta = call("plan", svc.plan, batch)
-        require(delta == (1, 0), ("plan launches", delta))
+        require(delta == (1, 0, 0), ("plan launches", delta))
         lo, hi = plan["lo"], plan["hi"]
         truth_df = np.asarray([len(set(da[a:b].tolist())) for a, b in zip(lo, hi)])
         require(np.all(hi - lo == plan["occ"]) and np.all(plan["occ"] > 0))
         require(np.array_equal(plan["df"], truth_df), "plan df != distinct docs of DA[lo:hi]")
         cnt, delta = call("count", svc.count, batch)
-        require(delta == (1, 0), ("count launches", delta))
+        require(delta == (1, 0, 0), ("count launches", delta))
         require(np.array_equal(cnt, truth_df), "count != distinct docs of DA[lo:hi]")
         for engine in ("auto", "ilcp", "brute", "pdl"):
             (docs, c), delta = call(f"list_docs[{engine}]", svc.list_docs_arrays, batch,
                                     max_df=max_df, engine=engine, max_buf=MAX_BUF)
-            require(delta == (2, 1), (engine, "list launches", delta))
+            require(delta == (2, 1, 1), (engine, "list launches", delta))
             require(docs.shape == (len(batch), max_df) and docs.dtype == np.int32)
             codes = plan["engine"] if engine == "auto" else [ENGINE_CODES[engine]] * len(c)
             check_listing(docs, c, lo, hi, da, max_df, engine_buffers(codes, MAX_BUF))
@@ -417,12 +497,13 @@ def phase_full_path(dev, bs, il):
         (docs, c), delta = call("list_docs[auto,pinned]", svc.list_docs_arrays, batch,
                                 max_df=max_df, engine="auto", max_buf=MAX_BUF)
         svc.brute_window = None
-        require(delta == (1, 1), ("pinned list launches", delta))
+        require(delta == (1, 1, 1), ("pinned list launches", delta))
         check_listing(docs, c, lo, hi, da, max_df, engine_buffers(plan["engine"], MAX_BUF))
         lists = svc.list_docs(batch, max_df=max_df)
         require([len(x) for x in lists] == c.tolist())
-    launches = {"backward_search": bs.launches, "ilcp_list": il.launches}
-    require(launches["backward_search"] > 0 and launches["ilcp_list"] > 0, launches)
+    launches = {"backward_search": bs.launches, "ilcp_list": il.launches,
+                "pdl_gather": pg.launches}
+    require(all(v > 0 for v in launches.values()), launches)
     require(ilcp_nonempty > 0, "ilcp_list returned no documents under engine='ilcp'")
     log(f"[full] {len(batches)} batches of 32, launches {launches}")
     log("[full] host seconds per batch: "
@@ -456,13 +537,16 @@ def host_topk(da, lo, hi, k):
 def pdl_gather_entries(pdl, lo, hi, max_cover=1024):
     """Host replay of the PDL gather's cover of SA[lo, hi): the entries it
     takes (partial blocks one per position, each full cover node its stored
-    list) and whether ``max_cover`` cut the cover short."""
+    list), whether ``max_cover`` cut the cover short, and the window
+    entries.  The gather's count is the window entries where they fill the
+    buffer, else min(entries, max_buf)."""
     L, ls = pdl["L"], pdl["leaf_starts"]
     ln = int(np.searchsorted(ls[:L], lo, "left"))
     rn = int(np.searchsorted(ls[1:], hi, "right")) - 1
     head_hi = min(hi, int(ls[min(ln, L)]))
     tail_lo = max(int(ls[min(max(rn + 1, ln), L)]), head_hi)
-    entries = max(head_hi - lo, 0) + max(hi - tail_lo, 0)
+    windows = max(head_hi - lo, 0) + max(hi - tail_lo, 0)
+    entries = windows
     i, covers = ln, 0
     while i <= rn and covers < max_cover:
         node, nxt = i, i + 1
@@ -473,13 +557,16 @@ def pdl_gather_entries(pdl, lo, hi, max_cover=1024):
             node, nxt = L + par, int(pdl["next_leaf"][par])
         entries += int(pdl["doc_base"][node + 1] - pdl["doc_base"][node])
         i, covers = nxt, covers + 1
-    return entries, i <= rn
+    return entries, i <= rn, windows
 
 
 def pdl_host_arrays(pdl):
+    from repro_torch.kernels.pdl_gather import iter_cap
+
     out = {f: getattr(pdl, f).cpu().numpy() for f in
-           ("leaf_starts", "is_first_child", "parent_of", "next_leaf", "doc_base")}
-    out["L"] = pdl.L
+           ("leaf_starts", "is_first_child", "parent_of", "next_leaf", "doc_base", "set_off",
+            "A", "rule_left", "rule_right")}
+    out.update(L=pdl.L, I=pdl.I, d=pdl.d, block_size=pdl.block_size, iter_cap=iter_cap(pdl))
     return out
 
 
@@ -508,7 +595,7 @@ def check_topk(docs, tfs, lo, hi, codes, da, pdl, max_df, k):
         if codes[r] == ENGINE_BRUTE:
             exact = hi[r] - lo[r] <= MAX_BUF and len(truth) <= max_df
         else:
-            entries, cut = pdl_gather_entries(pdl, int(lo[r]), int(hi[r]))
+            entries, cut = pdl_gather_entries(pdl, int(lo[r]), int(hi[r]))[:2]
             exact = entries <= MAX_BUF and not cut
         if exact:
             require(np.array_equal(got, want_d) and np.array_equal(tfs[r, :nout], want_t),
@@ -562,7 +649,7 @@ def check_tfidf(docs, scores, term_ranges, da, d, pdl, conjunctive, k):
         got = docs[q][docs[q] >= 0]
         gs = scores[q, : len(got)]
         require(np.all(docs[q, len(got):] == -1), (q, "tfidf padding"))
-        cover = [pdl_gather_entries(pdl, lo, hi) for lo, hi in ranges]
+        cover = [pdl_gather_entries(pdl, lo, hi)[:2] for lo, hi in ranges]
         if all(entries <= TFIDF_MAX_BUF and not cut for entries, cut in cover):
             require(len(got) == len(ranked), (q, "tfidf row length"))
             for g, s, want in zip(got.tolist(), gs, ranked):
@@ -582,7 +669,8 @@ def check_tfidf(docs, scores, term_ranges, da, d, pdl, conjunctive, k):
 
 
 def phase_topk_tfidf(dev, kernels):
-    """Phase 2b: topk and tfidf on a service with both PDLs."""
+    """Phase 2b: topk and tfidf on a service with both PDLs.  Returns the
+    launches and, for phase 4, the service and its batches' ranges."""
     from repro_torch.data.collections import (
         generate, paperlike_collections, random_substring_patterns,
     )
@@ -638,7 +726,7 @@ def phase_topk_tfidf(dev, kernels):
             (docs, tfs), delta = call(name, svc.topk_arrays, batch, k=TOPK_K, engine=engine,
                                       max_buf=MAX_BUF)
             svc.brute_window = None
-            require(delta == ((1 if pinned else 2), 0, 0, 0), (name, "launches", delta))
+            require(delta == ((1 if pinned else 2), 0, 0, 0, 1), (name, "launches", delta))
             require(docs.shape == tfs.shape == (len(batch), TOPK_K) and docs.dtype == np.int32)
             codes = plan["engine"] if engine == "auto" else [ENGINE_CODES[engine]] * len(batch)
             exact["topk"] += check_topk(docs, tfs, lo, hi, codes, da, pdl, max_df, TOPK_K)
@@ -650,14 +738,14 @@ def phase_topk_tfidf(dev, kernels):
             name = f"tfidf[{'and' if conj else 'or'}]"
             (docs, scores), delta = call(name, svc.tfidf_arrays, tf_queries[bi], k=TOPK_K,
                                          conjunctive=conj, max_terms=4, max_buf=TFIDF_MAX_BUF)
-            require(delta == (1, 0, 0, 0), (name, "launches", delta))
+            require(delta == (1, 0, 0, 0, 1), (name, "launches", delta))
             require(docs.shape == scores.shape == (len(batch), TOPK_K)
                     and scores.dtype == np.float32 and np.isfinite(scores).all())
             eq, w = check_tfidf(docs, scores, ranges, da, d, pdl, conj, TOPK_K)
             exact["tfidf"] += eq
             worst_ulp = max(worst_ulp, w)
-    launches = {"backward_search": bs.launches}
-    require(bs.launches > 0, launches)
+    launches = {"backward_search": bs.launches, "pdl_gather": kernels[4].launches}
+    require(all(v > 0 for v in launches.values()), launches)
     # where a batch's time goes: device busy time against the host clock
     for name, fn in (
         ("topk[pdl]", lambda: svc.topk_arrays(batches[-1], k=TOPK_K, engine="pdl",
@@ -676,7 +764,11 @@ def phase_topk_tfidf(dev, kernels):
     log(f"[topk] engine mix per batch (auto): {mix}")
     log("[topk] host seconds per batch: "
         + "; ".join(f"{k} " + " ".join(f"{x:.4f}" for x in v) for k, v in lat.items()))
-    return launches
+    term_ranges = [(torch.from_numpy(tp["lo"]).to(dev), torch.from_numpy(tp["hi"]).to(dev))
+                   for tp in term_plans]
+    plan_ranges = [(torch.from_numpy(pl["lo"]).to(dev), torch.from_numpy(pl["hi"]).to(dev))
+                   for pl in plans]
+    return launches, {"svc": svc, "ranges": plan_ranges, "term_ranges": term_ranges}
 
 
 def phase_primitives(large, kernels):
@@ -803,8 +895,9 @@ def phase_large(dev, bs, il):
     return large
 
 
-def kernel_checks(svc, full_batches, large):
-    """Phase 4: each kernel against its plain version, bit for bit."""
+def kernel_checks(svc, full_batches, large, lat):
+    """Phase 4: each kernel against its plain version, bit for bit.
+    ``lat``: the dependent-load latencies of ``load_latency_ns``."""
     from repro_torch.core.csa import search_base
     from repro_torch.kernels.backward_search import (
         backward_search, backward_search_plain, reverse_patterns,
@@ -902,12 +995,14 @@ def kernel_checks(svc, full_batches, large):
     kms, pms = cuda_time_ms(fk, 50), cuda_time_ms(fp, 10)
     kdev, kprof = queued_time_ms(fk, 50), device_ms_of(profile_calls(fk, 20),
                                                        "backward_search_kernel")
-    hlo, hhi, steps = host_backward_search(words, prefix, zcount, base, p.cpu().numpy(),
-                                           ln.cpu().numpy(), n, sigma)
+    hlo, hhi, steps, bw_chains = host_backward_search(words, prefix, zcount, base,
+                                                      p.cpu().numpy(), ln.cpu().numpy(), n, sigma)
     klo, khi = fk()
     require(np.array_equal(hlo, klo.cpu().numpy()) and np.array_equal(hhi, khi.cpu().numpy()))
     levels = words.shape[0]
     B, max_m = p.shape
+    bw_lat_ms, bw_rounds = longest(bw_chains, lat)
+    steps = sum(steps)
     bw_bytes = steps * levels * 2 * 8 + steps * 4 + B * max_m * 4 + B * 4 + 2 * B * 4
     bw_ops = steps * levels * 2 * 10
     records.append(dict(
@@ -918,6 +1013,7 @@ def kernel_checks(svc, full_batches, large):
         library_ms=None,
         bound_ms=max(bw_bytes / HBM_BYTES_PER_S, bw_ops / ALU_OPS_PER_S) * 1e3,
         bound_by="bytes" if bw_bytes / HBM_BYTES_PER_S >= bw_ops / ALU_OPS_PER_S else "operations",
+        latency_chain=bw_rounds, latency_bound_ms=bw_lat_ms,
         shape=f"B={B} max_m={max_m} levels={levels} n={n} active_steps={steps}",
     ))
 
@@ -928,7 +1024,7 @@ def kernel_checks(svc, full_batches, large):
     kms, pms = cuda_time_ms(fk, 20), cuda_time_ms(fp, 2)
     kdev, kprof = queued_time_ms(fk, 20), device_ms_of(profile_calls(fk, 20), "ilcp_list_kernel")
     idx = svc.ilcp
-    hd, hc, pops, scanned, _ = host_ilcp_list(
+    hd, hc, pops, scanned, _, chains = host_ilcp_list(
         idx.vilcp.cpu().numpy(), idx.rmq.table.cpu().numpy(), idx.run_starts.cpu().numpy(),
         svc.da.cpu().numpy(), lo.cpu().numpy(), hi.cpu().numpy(), idx.d, MAX_DF)
     kd, kc = fk()
@@ -945,6 +1041,7 @@ def kernel_checks(svc, full_batches, large):
         library_ms=None,
         bound_ms=max(il_bytes / HBM_BYTES_PER_S, il_ops / ALU_OPS_PER_S) * 1e3,
         bound_by="bytes" if il_bytes / HBM_BYTES_PER_S >= il_ops / ALU_OPS_PER_S else "operations",
+        latency_chain=longest(chains, lat)[1], latency_bound_ms=longest(chains, lat)[0],
         shape=f"B={B} max_df={MAX_DF} d={idx.d} rho={idx.nruns} pops={pops} scanned={scanned}",
     ))
 
@@ -962,7 +1059,244 @@ def kernel_checks(svc, full_batches, large):
     return records
 
 
-def primitive_kernel_checks(svc, large, wm_args):
+def load_latency_ns(dev, footprints=(16 << 10, 16 << 20, 256 << 20), steps=200_000):
+    """Nanoseconds of one dependent 4-byte global load: one thread chasing
+    a random cycle over each footprint in bytes (the probe kernel, through
+    the read-only path), each cycle read once first: 16 KB sits in the L1,
+    16 MB in the L2, 256 MB in neither.  ``l1_ns``, ``l2_ns``, ``dram_ns``."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(7)
+    result = {}
+    for nbytes in footprints:
+        n = nbytes // 4
+        perm = torch.randperm(n, device=dev, generator=gen)
+        nxt = torch.empty(n, dtype=torch.int32, device=dev)
+        nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+        del perm
+        int(nxt.sum())  # one pass over the cycle: the L2 holds what fits
+        _build.check(lib.rt_chase(nxt.data_ptr(), 1000, out.data_ptr(), stream), "chase")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _build.check(lib.rt_chase(nxt.data_ptr(), steps, out.data_ptr(), stream), "chase")
+        stop.record()
+        torch.cuda.synchronize()
+        result[nbytes] = start.elapsed_time(stop) * 1e6 / steps
+        del nxt
+    log("[latency] dependent load: " + ", ".join(f"{b >> 10} KB cycle {ns:.1f} ns"
+                                                 for b, ns in result.items()))
+    return {"l1_ns": result[footprints[0]], "l2_ns": result[footprints[1]],
+            "dram_ns": result[footprints[2]]}
+
+
+def no_sync_checks(full_svc, full_ranges, topk_svc, topk_ranges, max_df):
+    """The three executor calls under ``set_sync_debug_mode("error")``: any
+    host sync inside them raises."""
+    from repro_torch.core.ilcp import ilcp_list_docs_da_planned
+    from repro_torch.core.pdl import pdl_doc_freqs_batch, pdl_list_docs_batch
+
+    lo, hi = full_ranges
+    tlo, thi = topk_ranges
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pdl_list_docs_batch(full_svc.pdl_list, full_svc.csa, lo, hi, max_df, MAX_BUF)
+        pdl_doc_freqs_batch(topk_svc.pdl_topk, topk_svc.csa, tlo, thi, MAX_BUF)
+        ilcp_list_docs_da_planned(full_svc.ilcp, full_svc.da, lo, hi, max_df)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[nosync] pdl_list_docs_batch, pdl_doc_freqs_batch, ilcp_list_docs_da_planned: "
+        "no host sync")
+
+
+def pdl_walk_ns(hp, csa, doc_starts, lo, hi, max_buf, max_cover, lat):
+    """Latency bound of one query of the gather kernel, in ns, and its
+    rounds: the leaf searches, then the longer of two paths that run side
+    by side, lane 0's serial cover (per climb step the node's parent and
+    first-child flag, then its next leaf; per node its list bounds; per
+    expansion step the list symbol, or a rule's two children) as a
+    ``Chain``, and the windows' LF walks (per lane its positions, each step
+    a sampled-position search and a wavelet descent, every read taken as an
+    L1 hit)."""
+    from repro_torch.core.csa import csa_lookup
+
+    L, top = hp["L"], hp["L"] + hp["I"] - 1
+    ls = hp["leaf_starts"]
+    ch = Chain()
+    ln = ch.search("leaf_starts", ls[:L], lo)
+    rn = ch.search("leaf_starts", ls[1:], hi, right=True) - 1
+    ch.read(("leaf_starts", min(ln, L) >> 5))
+    ch.read(("leaf_starts", min(max(rn + 1, ln), L) >> 5))
+    head_hi = min(hi, int(ls[min(ln, L)]))
+    tail_lo = max(int(ls[min(max(rn + 1, ln), L)]), head_hi)
+    wh, wt = min(max(head_hi - lo, 0), hp["block_size"]), min(max(hi - tail_lo, 0),
+                                                               hp["block_size"])
+    head = (ch.l2, ch.l1)
+    i, base, covers = ln, wh + wt, 0
+    A, d, rl, rr = hp["A"], hp["d"], hp["rule_left"], hp["rule_right"]
+    while covers < max_cover and i <= rn:
+        node, nxt = i, i + 1
+        while True:
+            nc = min(node, top)
+            ch.read(("parent_of", nc >> 5), ("is_first_child", nc >> 7))
+            par = int(hp["parent_of"][nc])
+            if not hp["is_first_child"][nc] or par < 0:
+                break
+            ch.read(("next_leaf", max(par, 0) >> 5))
+            nl = int(hp["next_leaf"][min(max(par, 0), max(hp["I"] - 1, 0))])
+            if nl - 1 > rn:
+                break
+            node, nxt = L + par, nl
+        nd = min(max(node, 0), top)
+        ch.read(("set_off", nd >> 5), ("set_off", (nd + 1) >> 5), ("doc_base", nd >> 5))
+        ptr, end = int(hp["set_off"][nd]), int(hp["set_off"][nd + 1])
+        stack, cnt = [], 0
+        for _ in range(hp["iter_cap"]):
+            if not ((ptr < end or stack) and base + cnt < max_buf):
+                break
+            if stack:
+                sym = stack.pop()
+            else:
+                ch.read(("A", ptr >> 5))
+                sym, ptr = int(A[ptr]), ptr + 1
+            if sym < d:
+                cnt += 1
+            else:
+                r = min(max(sym - d - 1, 0), len(rl) - 1)
+                ch.read(("rule_right", r >> 5), ("rule_left", r >> 5))
+                stack += [int(rr[r]), int(rl[r])]
+        base, i, covers = base + cnt, nxt, covers + 1
+    cover_ns = ch.ns(lat) - (head[0] * lat["l2_ns"] + head[1] * lat["l1_ns"])
+    windows_ns = 0.0
+    if wh + wt:
+        entries = min(wh + wt, max_buf)
+        pos = [lo + e if e < wh else tail_lo + e - wh for e in range(entries)]
+        sa = csa_lookup(csa, torch.tensor(pos, dtype=torch.int32,
+                                          device=csa.samples.device)).cpu().numpy()
+        prev = np.maximum(sa - sa % csa.sample_rate,
+                          doc_starts[np.searchsorted(doc_starts, sa, "right") - 1])
+        search = ceil_log2(int(csa.sampled.pos.shape[0]) + 1)
+        per = ((sa - prev) * (search + csa.wm.levels) + search + 1
+               + ceil_log2(len(doc_starts) + 1))
+        lanes = np.zeros(32)
+        np.add.at(lanes, np.arange(entries) % 32, per)
+        windows_ns = float(lanes.max()) * lat["l1_ns"]
+    total = head[0] * lat["l2_ns"] + head[1] * lat["l1_ns"] + max(cover_ns, windows_ns)
+    return total, {"l2_rounds": ch.l2, "l1_rounds": ch.l1, "cover_ns": cover_ns,
+                   "windows_ns": windows_ns}
+
+
+def pdl_kernel_checks(full_svc, full_batches, topk, lat):
+    """Phase 4, PDL gather: the kernel against its plain version bit for
+    bit (buffer, frequencies, count) on phase 2's listing PDL and phase
+    2b's top-k PDL, their batches' ranges (tf-idf's term ranges too) and
+    edge ranges, at max_buf 4,096 and 64 and max_cover 1,024 and 4; every
+    count held to the host replay of the cover.  Then timed at the main
+    path's shape (phase 2, engine pdl, B = 32, max_buf 4,096)."""
+    from repro_torch.kernels.pdl_gather import pdl_gather, pdl_gather_plain
+
+    dev = full_svc.da.device
+    tsvc = topk["svc"]
+    full_ranges = []
+    for batch in full_batches:
+        plan = full_svc.plan(batch)
+        full_ranges.append((torch.from_numpy(plan["lo"]).to(dev),
+                            torch.from_numpy(plan["hi"]).to(dev)))
+    no_sync_checks(full_svc, full_ranges[0], tsvc, topk["ranges"][0],
+                   min(MAX_DF, full_svc.coll.d + 1))
+
+    def edge(svc, pdl, lo0, hi0):
+        """24 batch rows, then empty, inverted, whole and one-block ranges,
+        and one range from inside the two largest leaves: windows of up to
+        2 x (block_size - 1) positions."""
+        n, b = svc.csa.n, pdl.block_size
+        ls = pdl.leaf_starts.cpu().numpy()
+        i, k = sorted(np.argsort(np.diff(ls))[-2:].tolist())
+        elo = [0, 5, 7, 0, n - 1, 3, b + 1, 1, int(ls[i]) + 1]
+        ehi = [0, 5, 3, n, n, b - 1, 2 * b - 2, n - 1, int(ls[k + 1]) - 1]
+        t = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+        return torch.cat([lo0[:24], t(elo)]), torch.cat([hi0[:24], t(ehi)])
+
+    configs = ((MAX_BUF, 1024), (64, 1024), (MAX_BUF, 4), (64, 4))
+    cases = [("list PDL full batch 0, config " + str(c), full_svc.pdl_list, full_svc.csa,
+              *full_ranges[0], c) for c in configs]
+    cases += [(f"list PDL full batch {i}", full_svc.pdl_list, full_svc.csa, lo, hi, configs[0])
+              for i, (lo, hi) in enumerate(full_ranges[1:], 1)]
+    cases += [("list PDL edge ranges, config " + str(c), full_svc.pdl_list, full_svc.csa,
+               *edge(full_svc, full_svc.pdl_list, *full_ranges[0]), c) for c in configs]
+    for i, (lo, hi) in enumerate(topk["ranges"]):
+        cases += [(f"top-k PDL batch {i}, config {c}", tsvc.pdl_topk, tsvc.csa, lo, hi, c)
+                  for c in configs]
+    cases += [(f"top-k PDL tf-idf terms {i}", tsvc.pdl_topk, tsvc.csa, lo, hi,
+               (TFIDF_MAX_BUF, 1024)) for i, (lo, hi) in enumerate(topk["term_ranges"])]
+    cases += [("top-k PDL edge ranges, config " + str(c), tsvc.pdl_topk, tsvc.csa,
+               *edge(tsvc, tsvc.pdl_topk, *topk["ranges"][0]), c) for c in configs]
+    host = {id(full_svc.pdl_list): pdl_host_arrays(full_svc.pdl_list),
+            id(tsvc.pdl_topk): pdl_host_arrays(tsvc.pdl_topk)}
+    mism, err, truncated = 0, 0, {"windows": 0, "expansion": 0, "cover": 0}
+    for label, pdl, csa, lo, hi, (max_buf, max_cover) in cases:
+        k = pdl_gather(pdl, csa, lo, hi, max_buf, max_cover)
+        p = pdl_gather_plain(pdl, csa, lo, hi, max_buf, max_cover)
+        mm = sum(int((x != y).sum()) for x, y in zip(k, p))
+        mism += mm
+        err = max([err] + [int((x.long() - y.long()).abs().max()) for x, y in zip(k, p)])
+        count = k[2].cpu().numpy()
+        for r, (a, b) in enumerate(zip(lo.tolist(), hi.tolist())):
+            entries, cut, windows = pdl_gather_entries(host[id(pdl)], a, b, max_cover)
+            want = windows if windows >= max_buf else min(entries, max_buf)
+            require(count[r] == want, (label, r, "count", int(count[r]), "replay", want))
+            truncated["windows"] += windows > max_buf
+            truncated["expansion"] += windows < max_buf < entries
+            truncated["cover"] += bool(cut)
+        log(f"[kernels] pdl_gather {label}: mismatches {mm}")
+    require(mism == 0, ("pdl_gather mismatches", mism))
+    require(all(v > 0 for v in truncated.values()), ("truncation not exercised", truncated))
+    log(f"[kernels] pdl_gather rows truncated: {truncated}")
+
+    # -- times at the main path's shape; the bound from this run's work
+    pdl, csa = full_svc.pdl_list, full_svc.csa
+    lo, hi = full_ranges[0]
+    fk = lambda: pdl_gather(pdl, csa, lo, hi, MAX_BUF, 1024)  # noqa: E731
+    fp = lambda: pdl_gather_plain(pdl, csa, lo, hi, MAX_BUF, 1024)  # noqa: E731
+    kms, kdev = cuda_time_ms(fk, 20), queued_time_ms(fk, 20)
+    kprof = device_ms_of(profile_calls(fk, 5), "pdl_gather_kernel")
+    pms = cuda_time_ms(fp, 1)
+    hp = host[id(pdl)]
+    doc_starts = csa.doc_bv.pos.cpu().numpy()
+    B = lo.shape[0]
+    taken, window_total, paths = 0, 0, []
+    for a, b in zip(lo.tolist(), hi.tolist()):
+        entries, _, windows = pdl_gather_entries(hp, a, b, 1024)
+        taken += windows if windows >= MAX_BUF else min(entries, MAX_BUF)
+        window_total += min(windows, MAX_BUF)
+        paths.append(pdl_walk_ns(hp, csa, doc_starts, a, b, MAX_BUF, 1024, lat))
+    lat_ns, rounds = max(paths, key=lambda x: x[0])
+    nbytes = B * 8 + B * MAX_BUF * 8 + B * 4 + 4 * taken + 8 * window_total
+    return [dict(
+        name="pdl_gather", route="cuda", source="src/repro_torch/csrc/retrieval_kernels.cu",
+        replaces="src/repro/core/pdl.py:461",
+        replaces_note="no TPU kernel: the reference's _pdl_gather is XLA",
+        launches=None, max_abs_err=err, mismatches=mism,
+        ms=kms, kernel_ms=kms, device_ms=kdev, profiler_device_ms=kprof, plain_ms=pms,
+        library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        latency_chain=rounds, latency_bound_ms=lat_ns * 1e-6,
+        shape=f"B={B} max_buf={MAX_BUF} max_cover=1024 n={csa.n} L={pdl.L} I={pdl.I} "
+              f"entries_taken={taken} window_entries={window_total}",
+        topk_shape_ms=cuda_time_ms(lambda: pdl_gather(
+            tsvc.pdl_topk, tsvc.csa, *topk["ranges"][0], MAX_BUF, 1024), 20),
+        topk_shape_device_ms=queued_time_ms(lambda: pdl_gather(
+            tsvc.pdl_topk, tsvc.csa, *topk["ranges"][0], MAX_BUF, 1024), 20),
+        tfidf_shape_device_ms=queued_time_ms(lambda: pdl_gather(
+            tsvc.pdl_topk, tsvc.csa, *topk["term_ranges"][0], TFIDF_MAX_BUF, 1024), 20),
+    )]
+
+
+def primitive_kernel_checks(svc, large, wm_args, lat):
     """Phase 4, rank and RMQ: each kernel against its plain version, bit for
     bit, on every wavelet level and both ILCP sparse tables of phases 2 and
     3 and on edge rows; then timed at the slice's shapes and on one stream
@@ -1067,8 +1401,11 @@ def primitive_kernel_checks(svc, large, wm_args):
     stream_rmq = rmq_timing(ix, *(x[:STREAM_Q].contiguous() for x in rmq_ranges(ix.nruns, STREAM_Q)),
                             10)
     records = []
-    for name, line, sl, st in (("rank", "src/repro/kernels/rank.py:39", slice_rank, stream_rank),
-                               ("rmq", "src/repro/kernels/rmq.py:44", slice_rmq, stream_rmq)):
+    # chains: the query's index read, then the word and prefix (rank); the
+    # query's ends, then two table cells, then two values (RMQ); all L2
+    for name, line, sl, st, chain in (
+            ("rank", "src/repro/kernels/rank.py:39", slice_rank, stream_rank, 2),
+            ("rmq", "src/repro/kernels/rmq.py:44", slice_rmq, stream_rmq, 3)):
         records.append(dict(
             name=name, route="cuda", source="src/repro_torch/csrc/retrieval_kernels.cu",
             replaces=line, launches=None, max_abs_err=err[name], mismatches=mism[name],
@@ -1079,7 +1416,8 @@ def primitive_kernel_checks(svc, large, wm_args):
             stream_q=st["q"], stream_ms=st["ms"], stream_device_ms=st["device_ms"],
             stream_profiler_device_ms=st["profiler_device_ms"],
             stream_plain_ms=st["plain_ms"], stream_bound_ms=st["bound_ms"],
-            stream_bound_by=st["bound_by"],
+            stream_bound_by=st["bound_by"], latency_chain={"l2_rounds": chain, "l1_rounds": 0},
+            latency_bound_ms=chain * lat["l2_ns"] * 1e-6,
         ))
     return records
 
@@ -1558,6 +1896,7 @@ def main() -> int:
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ilcp_list import ilcp_list
+    from repro_torch.kernels.pdl_gather import pdl_gather
     from repro_torch.kernels.rank import rank
     from repro_torch.kernels.rmq import rmq
 
@@ -1567,10 +1906,12 @@ def main() -> int:
     build = phase_build()
     paths = {}
     t0 = time.perf_counter()
-    svc, full_batches, paths["list"] = phase_full_path(dev, backward_search, ilcp_list)
+    svc, full_batches, paths["list"] = phase_full_path(dev, backward_search, ilcp_list,
+                                                       pdl_gather)
     log(f"[full] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    paths["topk_tfidf"] = phase_topk_tfidf(dev, (backward_search, ilcp_list, rank, rmq))
+    paths["topk_tfidf"], topk = phase_topk_tfidf(
+        dev, (backward_search, ilcp_list, rank, rmq, pdl_gather))
     log(f"[topk] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     large = phase_large(dev, backward_search, ilcp_list)
@@ -1579,10 +1920,15 @@ def main() -> int:
     paths["primitives"], wm_args = phase_primitives(large, (rank, rmq))
     log(f"[prims] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    records = kernel_checks(svc, full_batches, large)
-    records += primitive_kernel_checks(svc, large, wm_args)
+    lat = load_latency_ns(dev)
+    records = kernel_checks(svc, full_batches, large, lat)
+    records += primitive_kernel_checks(svc, large, wm_args, lat)
+    records += pdl_kernel_checks(svc, full_batches, topk, lat)
+    for r in records:
+        r.update(l1_latency_ns=lat["l1_ns"], l2_latency_ns=lat["l2_ns"],
+                 dram_latency_ns=lat["dram_ns"])
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
-    del svc, full_batches, large
+    del svc, full_batches, large, topk
     free_device_memory()
     t0 = time.perf_counter()
     cfg = dataclasses.replace(llama3_2_3b.config(), attention_impl="flash")

@@ -13,10 +13,10 @@ per entry); full blocks through the Fig-4 climb to the highest stored node
 that fits in the query, whose list is decompressed with a bounded grammar
 stack, each entry with its stored frequency.  The reference
 runs the climb, the expansion and the cover loop as nested per-query
-``while_loop``s under ``vmap``.  Here they are one batched state machine
-with masks: each query's trajectory, and its ``max_buf`` / ``max_cover``
-truncation, are the reference's.  Every masked loop syncs with the host
-once per round to test whether any query is still running.
+``while_loop``s under ``vmap``.  Here the gather is one kernel launch per
+batch (``repro_torch.kernels.pdl_gather``), with no host sync; each
+query's trajectory, and its ``max_buf`` / ``max_cover`` truncation, are the
+reference's.
 """
 
 from __future__ import annotations
@@ -27,14 +27,14 @@ import numpy as np
 import torch
 
 from repro_torch.common import (
-    BIG, IDX, TensorDataclass, as_i32, ceil_log2, elias_fano_bits,
-    lexsort_rows, searchsorted_i32,
+    BIG, IDX, TensorDataclass, as_i32, ceil_log2, elias_fano_bits, lexsort_rows,
 )
-from repro_torch.core.csa import CSA, csa_doc_of, csa_lookup
+from repro_torch.core.csa import CSA
 from repro_torch.core.listing import _distinct_from_window
 from repro_torch.core.sufftree import lcp_interval_tree
 from repro_torch.core.suffix import SuffixData
 from repro_torch.grammar.repair import repair_compress_lists
+from repro_torch.kernels.pdl_gather import pdl_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,131 +307,8 @@ def build_pdl(
 
 
 # ===========================================================================
-# Query (batched state machines)
+# Query (through the gather kernel's wrapper)
 # ===========================================================================
-
-
-def _brute_window_into(csa: CSA, lo, hi, buf, fbuf, base, cap: int, window: int):
-    """CSA-locate the partial blocks [lo, hi) (hi - lo <= window) into the
-    rows of ``buf`` after ``base``, each with frequency 1 in ``fbuf``.
-    Slot ``cap`` takes every write the reference drops."""
-    idx = lo[:, None] + torch.arange(window, dtype=IDX, device=lo.device)[None, :]
-    valid = idx < hi[:, None]
-    docs = csa_doc_of(csa, csa_lookup(csa, torch.clamp(idx, max=csa.n - 1)))
-    offs = torch.cumsum(valid.to(IDX), 1, dtype=IDX) - 1
-    widx = torch.clamp(torch.where(valid, base[:, None] + offs, cap), max=cap).long()
-    buf.scatter_(1, widx, docs)
-    fbuf.scatter_(1, widx, 1)
-    return base + valid.sum(1, dtype=IDX)
-
-
-def _climb(index: PDLIndex, leaf_i, rn, active):
-    """Fig 4 parent(): for each active query, the highest stored ancestor
-    of leaf ``leaf_i`` whose subtree fits in leaves [.., rn].  Returns
-    (node id, next leaf index)."""
-    node = leaf_i.clone()
-    nxt = leaf_i + 1
-    go = active.clone()
-    top = index.L + index.I - 1
-    while bool(go.any()):
-        nc = torch.clamp(node, max=top)
-        par = index.parent_of[nc]
-        nl = index.next_leaf[torch.clamp(par, 0, max(index.I - 1, 0))]
-        ok = go & index.is_first_child[nc] & (par >= 0) & (nl - 1 <= rn)
-        node = torch.where(ok, index.L + par, node)
-        nxt = torch.where(ok, nl, nxt)
-        go = ok
-    return node, nxt
-
-
-def _expand_into(index: PDLIndex, nd, buf, fbuf, base, cap: int, active):
-    """Decompress node ``nd``'s list into each active row of ``buf`` from
-    ``base`` on, emitting at most cap - base entries, with each entry's
-    stored frequency in ``fbuf`` (1 in listing mode).  Returns the new
-    base."""
-    d = index.d
-    B = nd.shape[0]
-    dev = nd.device
-    rows = torch.arange(B, device=dev)
-    ndc = torch.clamp(nd, 0, index.L + index.I - 1)
-    ptr = index.set_off[ndc]
-    end = index.set_off[ndc + 1]
-    gbase = index.doc_base[ndc]
-    stack_size = 2 * index.max_rule_depth + 4
-    lenA = int(index.A.shape[0])
-    nrule = int(index.rule_left.shape[0])
-    nruns = int(index.freq_vals.shape[0])
-    iter_cap = 4 * index.max_set_len + 16
-    stack = torch.zeros((B, stack_size), dtype=IDX, device=dev)
-    sp = torch.zeros(B, dtype=IDX, device=dev)
-    cnt = torch.zeros(B, dtype=IDX, device=dev)
-    run = active.clone()
-    for _ in range(iter_cap):
-        run = run & ((ptr < end) | (sp > 0)) & (base + cnt < cap)
-        if not bool(run.any()):
-            break
-        from_stack = sp > 0
-        sym = torch.where(
-            from_stack,
-            stack[rows, torch.clamp(sp - 1, min=0).long()],
-            index.A[torch.clamp(ptr, max=lenA - 1)],
-        )
-        sp = torch.where(run & from_stack, sp - 1, sp)
-        ptr = torch.where(run & ~from_stack, ptr + 1, ptr)
-        is_term = sym < d
-        emit = run & is_term
-        widx = torch.where(emit, base + cnt, cap).long()
-        buf[rows, widx] = sym
-        if index.has_freqs:
-            run_of = searchsorted_i32(index.freq_gcum, gbase + cnt, right=True)
-            fbuf[rows, widx] = index.freq_vals[torch.clamp(run_of, max=nruns - 1)]
-        else:
-            fbuf[rows, widx] = 1
-        cnt = torch.where(emit, cnt + 1, cnt)
-        # push rule children: right then left (left expands first)
-        push = run & ~is_term
-        ridx = torch.clamp(sym - d - 1, 0, nrule - 1)
-        for child in (index.rule_right[ridx], index.rule_left[ridx]):
-            slot = torch.clamp(sp, max=stack_size - 1).long()
-            stack[rows, slot] = torch.where(push, child, stack[rows, slot])
-            sp = torch.where(push, sp + 1, sp)
-    return base + cnt
-
-
-def _pdl_gather(index: PDLIndex, csa: CSA, lo, hi, max_buf: int, max_cover: int):
-    """Fill a buffer with the (doc id, tf) entries covering SA[lo, hi):
-    partial blocks via CSA (tf 1), full blocks via climb + expansion.
-    Returns (docs[B, max_buf], tf[B, max_buf], count[B]); a count past
-    ``max_buf`` means the buffer truncated."""
-    B = lo.shape[0]
-    L = index.L
-    leaf_starts = index.leaf_starts
-    cap = max_buf
-    buf = torch.zeros((B, max_buf + 1), dtype=IDX, device=lo.device)
-    fbuf = torch.zeros((B, max_buf + 1), dtype=IDX, device=lo.device)
-
-    # full leaves: first leaf starting >= lo .. last leaf ending <= hi
-    ln = searchsorted_i32(leaf_starts[:L].contiguous(), lo)
-    rn = searchsorted_i32(leaf_starts[1:].contiguous(), hi, right=True) - 1
-
-    head_hi = torch.minimum(hi, leaf_starts[torch.clamp(ln, max=L)])
-    base = torch.zeros(B, dtype=IDX, device=lo.device)
-    base = _brute_window_into(csa, lo, head_hi, buf, fbuf, base, cap, index.block_size)
-    tail_lo = torch.maximum(
-        leaf_starts[torch.clamp(torch.maximum(rn + 1, ln), max=L)], head_hi
-    )
-    base = _brute_window_into(csa, tail_lo, hi, buf, fbuf, base, cap, index.block_size)
-
-    i = ln
-    active = i <= rn
-    for _ in range(max_cover):
-        if not bool(active.any()):
-            break
-        node, nxt = _climb(index, i, rn, active)
-        base = _expand_into(index, node, buf, fbuf, base, cap, active)
-        i = torch.where(active, nxt, i)
-        active = active & (i <= rn)
-    return buf[:, :max_buf], fbuf[:, :max_buf], base
 
 
 def pdl_list_docs_batch(index: PDLIndex, csa: CSA, lo, hi, max_df: int,
@@ -439,7 +316,7 @@ def pdl_list_docs_batch(index: PDLIndex, csa: CSA, lo, hi, max_df: int,
     """PDL listing over a range batch (masked-query contract of
     repro_torch.core.listing): (docs int32[B, max_df] ascending, -1
     padded, count[B])."""
-    bd, _, cnt = _pdl_gather(index, csa, lo, hi, max_buf, max_cover)
+    bd, _, cnt = pdl_gather(index, csa, lo.contiguous(), hi.contiguous(), max_buf, max_cover)
     valid = torch.arange(max_buf, device=lo.device)[None, :] < cnt[:, None]
     docs, count, _ = _distinct_from_window(bd, valid, max_df)
     return docs, count
@@ -451,7 +328,7 @@ def pdl_doc_freqs_batch(index: PDLIndex, csa: CSA, lo, hi, max_buf: int = 4096,
     tf-idf: the gathered entries merged by document with their frequencies
     summed.  Returns (docs int32[B, max_buf] ascending, padded with
     INT32_MAX; tf int32[B, max_buf]; ndocs int32[B])."""
-    bd, bf, cnt = _pdl_gather(index, csa, lo, hi, max_buf, max_cover)
+    bd, bf, cnt = pdl_gather(index, csa, lo.contiguous(), hi.contiguous(), max_buf, max_cover)
     B = lo.shape[0]
     dev = lo.device
     pos = torch.arange(max_buf, dtype=IDX, device=dev)

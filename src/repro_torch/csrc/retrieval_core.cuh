@@ -84,8 +84,46 @@ RT_HD void backward_search_one(
 }
 
 // ---------------------------------------------------------------------------
+// Warp helpers.  In the device pass a query is served by a warp (kWarp
+// lanes); in every host pass the same code runs as one lane that plays the
+// warp's lanes in turn, so the host build checks the same arithmetic.
+// ---------------------------------------------------------------------------
+
+constexpr int kWarp = 32;
+
+#ifdef __CUDA_ARCH__
+RT_HD int lane_id() { return threadIdx.x & (kWarp - 1); }
+RT_HD int lane_count() { return kWarp; }
+RT_HD void warp_sync() { __syncwarp(); }
+#else
+RT_HD int lane_id() { return 0; }
+RT_HD int lane_count() { return 1; }
+RT_HD void warp_sync() {}
+#endif
+
+// First k in [0, len) with a[k] >= x (len when none): torch.searchsorted.
+RT_HD int lower_bound(const int32_t* a, int len, int x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (RT_LDG(a + mid) < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// First k in [0, len) with a[k] > x (len when none): right=True.
+RT_HD int upper_bound(const int32_t* a, int len, int x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (RT_LDG(a + mid) <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// ---------------------------------------------------------------------------
 // ILCP listing (replaces repro/kernels/ilcp_list.py, _ilcp_list_kernel):
-// the Fig-1 recursion of repro/core/ilcp.py run directly by one query.
+// the Fig-1 recursion of repro/core/ilcp.py run by one warp per query.
 // ---------------------------------------------------------------------------
 
 RT_HD int stack_cap(int max_df) { return max_df + 4; }
@@ -106,57 +144,359 @@ RT_HD int rmq_leftmost(const int32_t* table, const int32_t* vilcp, int levels,
   return (vb < va || (vb == va && ib < ia)) ? ib : ia;
 }
 
+// The argmin the recursion would compute on popping (a, b): the interval
+// clamped into [0, rho).
+RT_HD int interval_argmin(const int32_t* table, const int32_t* vilcp,
+                          int levels, int rho, int a, int b) {
+  return rmq_leftmost(table, vilcp, levels, rho, iclamp(a, 0, rho - 1),
+                      iclamp(b, 0, rho - 1));
+}
+
+// Run containing ILCP position pos (pos < 0 gives -1): runs_of.
+RT_HD int run_of(const int32_t* run_starts, int rho, int pos) {
+  return upper_bound(run_starts, rho, pos) - 1;
+}
+
+// One chunk of the scan of a run's DA positions [k, j): the kWarp positions
+// from k, at most `room` of them emitted.  It emits the leading positions up
+// to the first whose document is already seen or repeats an earlier
+// position of the chunk, at docs_at[0..E), marks them seen, and returns E;
+// *stopped says the scan met such a position while room was left: the
+// recursion's abort.  Device: one position per lane, the seen test in
+// shared memory, repeats by __match_any_sync, the first stop by a ballot.
+RT_HD int ilcp_scan_chunk(const int32_t* da, int n, int d, int k, int j,
+                          int room, uint32_t* seen, int32_t* docs_at,
+                          bool* stopped) {
+  const int nvalid = imin(j - k, kWarp);
+#ifdef __CUDA_ARCH__
+  const int lane = lane_id();
+  const bool valid = lane < nvalid;
+  const int g = valid ? RT_LDG(da + iclamp(k + lane, 0, n - 1)) : 0;
+  const int gc = iclamp(g, 0, d - 1);
+  const bool was = valid && ((seen[gc >> 5] >> (gc & 31)) & 1u);
+  const unsigned peers = __match_any_sync(0xffffffffu, valid ? gc : -1 - lane);
+  const bool dup = valid && (peers & ((1u << lane) - 1u)) != 0u;
+  const unsigned stop = __ballot_sync(0xffffffffu, was || dup);
+  const int first = stop ? __ffs(stop) - 1 : kWarp;
+  const int emit = imin(imin(first, nvalid), room);
+  __syncwarp();  // every lane has read the bitmap before any lane marks it
+  if (lane < emit) {
+    docs_at[lane] = g;
+    atomicOr(seen + (gc >> 5), 1u << (gc & 31));
+  }
+  __syncwarp();
+#else
+  int32_t g[kWarp];
+  int first = kWarp;
+  for (int l = 0; l < nvalid; ++l) g[l] = da[iclamp(k + l, 0, n - 1)];
+  for (int l = 0; l < nvalid && first == kWarp; ++l) {
+    const int gc = iclamp(g[l], 0, d - 1);
+    bool stop = (seen[gc >> 5] >> (gc & 31)) & 1u;
+    for (int e = 0; e < l; ++e) stop = stop || iclamp(g[e], 0, d - 1) == gc;
+    if (stop) first = l;
+  }
+  const int emit = imin(imin(first, nvalid), room);
+  for (int l = 0; l < emit; ++l) {
+    const int gc = iclamp(g[l], 0, d - 1);
+    docs_at[l] = g[l];
+    seen[gc >> 5] |= 1u << (gc & 31);
+  }
+#endif
+  *stopped = first < nvalid && first < room;
+  return emit;
+}
+
 // Lists the distinct documents of DA[lo, hi) in discovery order into
-// docs[0:max_df] (-1 padded) and returns their count.  stka/stkb hold
-// stack_cap(max_df) entries; seen holds ceil(d/32) zeroed words.  The
-// trajectory is the reference's: every pop counts toward pop_cap (even an
-// invalid a > b one); a seen document aborts its interval and its pushes;
-// pushes go right (i_run+1, b) then left (a, i_run-1) while sp < cap.
+// docs[0:max_df] (-1 padded) and returns their count; every lane of the
+// warp runs it with the same values.  Each stack entry (stka, stkb, stkr;
+// stack_cap(max_df) entries, written by lane 0) holds an interval and its
+// argmin run, resolved when the interval is pushed: lanes 0 and 1 issue the
+// two children's RMQs before the run's reads, so a pop starts with its run
+// in hand.  seen holds ceil(d/32) words, zeroed here.  The trajectory is the
+// reference's: every pop counts toward pop_cap (even an invalid a > b one);
+// a seen document aborts its interval and its pushes; pushes go right
+// (r+1, b) then left (a, r-1) while sp < cap.
 RT_HD int ilcp_list_one(
     const int32_t* vilcp, const int32_t* table, const int32_t* run_starts,
     const int32_t* da, int levels, int rho, int n, int d, int max_df,
-    int lo, int hi, int lo_run, int hi_run,
-    int32_t* stka, int32_t* stkb, uint32_t* seen, int32_t* docs) {
-  for (int s = 0; s < max_df; ++s) docs[s] = -1;
+    int lo, int hi, int lo_run, int hi_run, int32_t* stka, int32_t* stkb,
+    int32_t* stkr, uint32_t* seen, int32_t* docs) {
+  const int lane = lane_id(), lanes = lane_count();
+  const bool leader = lane == 0;
+  for (int w = lane; w < (d + 31) / 32; w += lanes) seen[w] = 0u;
   const int cap = stack_cap(max_df);
   const int max_pops = pop_cap(max_df);
-  stka[0] = lo_run;
-  stkb[0] = hi_run;
+  const int root = (lo_run <= hi_run && lo < hi)
+      ? interval_argmin(table, vilcp, levels, rho, lo_run, hi_run) : 0;
+  if (leader) {
+    stka[0] = lo_run;
+    stkb[0] = hi_run;
+    stkr[0] = root;
+  }
+  warp_sync();
   int sp = 1, cnt = 0, pops = 0;
   while (sp > 0 && cnt < max_df && pops < max_pops) {
     --sp;
     ++pops;
-    const int a = stka[sp], b = stkb[sp];
+    const int a = stka[sp], b = stkb[sp], r = stkr[sp];
     if (a > b || lo >= hi) continue;
-    const int r = rmq_leftmost(table, vilcp, levels, rho,
-                               iclamp(a, 0, rho - 1), iclamp(b, 0, rho - 1));
+    const bool push_right = r + 1 <= b, push_left = a <= r - 1;
+#ifdef __CUDA_ARCH__
+    int child = 0;
+    if (lane == 0 && push_right) child = interval_argmin(table, vilcp, levels, rho, r + 1, b);
+    if (lane == 1 && push_left) child = interval_argmin(table, vilcp, levels, rho, a, r - 1);
+#endif
     int k = imax(lo, RT_LDG(run_starts + iclamp(r, 0, rho - 1)));
     const int j = imin(hi, RT_LDG(run_starts + iclamp(r + 1, 0, rho)));
-    bool aborted = false;
-    for (; k < j && cnt < max_df; ++k) {
-      const int g = RT_LDG(da + iclamp(k, 0, n - 1));
-      const int gc = iclamp(g, 0, d - 1);
-      const uint32_t bit = 1u << (gc & 31);
-      if (seen[gc >> 5] & bit) {
-        aborted = true;
-        break;
-      }
-      seen[gc >> 5] |= bit;
-      docs[cnt++] = g;
+    bool stopped = false;
+    while (k < j && cnt < max_df && !stopped) {
+      const int e = ilcp_scan_chunk(da, n, d, k, j, max_df - cnt, seen, docs + cnt, &stopped);
+      k += e;
+      cnt += e;
     }
-    if (aborted) continue;
-    if (r + 1 <= b && sp < cap) {
-      stka[sp] = r + 1;
-      stkb[sp] = b;
+#ifdef __CUDA_ARCH__
+    const int right = __shfl_sync(0xffffffffu, child, 0);
+    const int left = __shfl_sync(0xffffffffu, child, 1);
+#else
+    const int right = push_right ? interval_argmin(table, vilcp, levels, rho, r + 1, b) : 0;
+    const int left = push_left ? interval_argmin(table, vilcp, levels, rho, a, r - 1) : 0;
+#endif
+    if (stopped) continue;
+    warp_sync();  // every lane has read the popped entry before lane 0 overwrites it
+    if (push_right && sp < cap) {
+      if (leader) {
+        stka[sp] = r + 1;
+        stkb[sp] = b;
+        stkr[sp] = right;
+      }
       ++sp;
     }
-    if (a <= r - 1 && sp < cap) {
-      stka[sp] = a;
-      stkb[sp] = r - 1;
+    if (push_left && sp < cap) {
+      if (leader) {
+        stka[sp] = a;
+        stkb[sp] = r - 1;
+        stkr[sp] = left;
+      }
+      ++sp;
+    }
+    warp_sync();
+  }
+  for (int s = cnt + lane; s < max_df; s += lanes) docs[s] = -1;
+  return cnt;
+}
+
+// ---------------------------------------------------------------------------
+// CSA locate (the port's counterpart of repro/core/csa.py csa_lookup and
+// csa_doc_of, one position at a time).
+// ---------------------------------------------------------------------------
+
+struct CsaView {
+  const int32_t* words;       // [levels, stride] BWT wavelet bit patterns
+  const int32_t* prefix;      // [levels, stride] ones before each word
+  const int32_t* zcount;      // [levels]
+  const int32_t* counts;      // [sigma + 1] symbols strictly below c
+  const int32_t* sym_starts;  // [sigma]
+  const int32_t* sampled;     // sorted sampled SA positions (sampled_len stored)
+  const int32_t* samples;     // [sampled_m] SA values at the sampled positions
+  const int32_t* doc_starts;  // sorted document starts (doc_len stored)
+  int levels, stride, n, sample_rate, sampled_len, sampled_m, doc_len;
+};
+
+// LF(j) = counts[c] + rank_c(BWT, j) for c = BWT[j].  Reading c bit by bit
+// descends j along c's own bits, so the access descent is also the rank
+// descent: one word and one prefix read per level.
+RT_HD int csa_lf(const CsaView& c, int j) {
+  int pos = j, sym = 0;
+  for (int lvl = 0; lvl < c.levels; ++lvl) {
+    const int64_t w = (int64_t)lvl * c.stride + (pos >> 5);
+    const uint32_t word = (uint32_t)RT_LDG(c.words + w);
+    const int bit = (word >> (pos & 31)) & 1u;
+    const int r1 = RT_LDG(c.prefix + w) + RT_POPC(word & ((1u << (pos & 31)) - 1u));
+    pos = bit ? RT_LDG(c.zcount + lvl) + r1 : pos - r1;
+    sym = (sym << 1) | bit;
+  }
+  return RT_LDG(c.counts + sym) + pos - RT_LDG(c.sym_starts + sym);
+}
+
+// SA[i]: LF steps until a sampled position, at most sample_rate of them (a
+// walk needs fewer: every text position that is a multiple of sample_rate,
+// and every document start, is sampled).  The same integers as the batched
+// walk's sample_rate masked rounds.
+RT_HD int csa_locate_one(const CsaView& c, int i) {
+  int j = i, steps = 0;
+  for (int s = 0; s < c.sample_rate; ++s) {
+    const int k = imin(lower_bound(c.sampled, c.sampled_len, j), imax(c.sampled_m - 1, 0));
+    if (c.sampled_m > 0 && RT_LDG(c.sampled + k) == j) break;
+    j = csa_lf(c, j);
+    ++steps;
+  }
+  const int r = lower_bound(c.sampled, c.sampled_len, j);
+  return RT_LDG(c.samples + iclamp(r, 0, c.sampled_m - 1)) + steps;
+}
+
+// DA[i] given SA[i]: rank over the document starts.
+RT_HD int csa_doc_of(const CsaView& c, int text_pos) {
+  return lower_bound(c.doc_starts, c.doc_len, text_pos + 1) - 1;
+}
+
+// ---------------------------------------------------------------------------
+// PDL gather (the port's own kernel; the reference's _pdl_gather in
+// repro/core/pdl.py is XLA): the (doc, tf) entries covering SA[lo, hi).
+// ---------------------------------------------------------------------------
+
+struct PdlView {
+  const int32_t* leaf_starts;     // [L + 1]
+  const uint8_t* is_first_child;  // [L + I] bool
+  const int32_t* parent_of;       // [L + I]
+  const int32_t* next_leaf;       // [max(I, 1)]
+  const int32_t* set_off;         // [L + I + 1]
+  const int32_t* A;               // [lenA]
+  const int32_t* rule_left;       // [nrule]
+  const int32_t* rule_right;      // [nrule]
+  const int32_t* doc_base;        // [L + I + 1]
+  const int32_t* freq_vals;       // [nruns]
+  const int32_t* freq_gcum;       // [nruns]
+  int L, I, d, lenA, nrule, nruns, block_size, iter_cap, stack_size, has_freqs;
+};
+
+// Full leaves ln..rn (rn < ln: none), the head partial block [lo, lo + wh)
+// and the tail partial block [tail_lo, tail_lo + wt), each at most
+// block_size positions long.
+struct PdlGeometry {
+  int ln, rn, lo, wh, tail_lo, wt;
+};
+
+RT_HD PdlGeometry pdl_geometry(const PdlView& p, int lo, int hi) {
+  PdlGeometry g;
+  g.ln = lower_bound(p.leaf_starts, p.L, lo);
+  g.rn = upper_bound(p.leaf_starts + 1, p.L, hi) - 1;
+  const int head_hi = imin(hi, RT_LDG(p.leaf_starts + imin(g.ln, p.L)));
+  g.lo = lo;
+  g.wh = iclamp(head_hi - lo, 0, p.block_size);
+  g.tail_lo = imax(RT_LDG(p.leaf_starts + imin(imax(g.rn + 1, g.ln), p.L)), head_hi);
+  g.wt = iclamp(hi - g.tail_lo, 0, p.block_size);
+  return g;
+}
+
+// The window entries e = lane, lane + lanes, ... below min(wh + wt, cap):
+// entry e is the head's position lo + e, then the tail's, each located
+// through the CSA, with frequency 1.
+RT_HD void pdl_windows(const CsaView& c, const PdlGeometry& g, int32_t* buf,
+                       int32_t* fbuf, int cap, int lane, int lanes) {
+  const int entries = imin(g.wh + g.wt, cap);
+  for (int e = lane; e < entries; e += lanes) {
+    const int pos = e < g.wh ? g.lo + e : g.tail_lo + (e - g.wh);
+    buf[e] = csa_doc_of(c, csa_locate_one(c, imin(pos, c.n - 1)));
+    fbuf[e] = 1;
+  }
+}
+
+// Fig 4 parent(): the highest stored ancestor of leaf `leaf` whose subtree
+// ends at leaf rn or before; *nxt is the leaf after it.
+RT_HD int pdl_climb_one(const PdlView& p, int leaf, int rn, int* nxt) {
+  const int top = p.L + p.I - 1;
+  int node = leaf;
+  *nxt = leaf + 1;
+  for (;;) {
+    const int nc = imin(node, top);
+    const int par = RT_LDG(p.parent_of + nc);
+    if (!RT_LDG(p.is_first_child + nc) || par < 0) break;
+    const int nl = RT_LDG(p.next_leaf + iclamp(par, 0, imax(p.I - 1, 0)));
+    if (nl - 1 > rn) break;
+    node = p.L + par;
+    *nxt = nl;
+  }
+  return node;
+}
+
+// Decompresses node nd's list into buf from base on, at most cap - base
+// entries and iter_cap steps, with the grammar stack (stack_size entries; a
+// full stack overwrites its top slot while sp still grows, as the
+// reference's does).  fbuf takes 1 in listing mode and, in top-k mode, the
+// entry's global position doc_base[nd] + cnt, which pdl_freqs turns into
+// its frequency.  Returns the new base.
+RT_HD int pdl_expand_one(const PdlView& p, int nd, int32_t* buf, int32_t* fbuf,
+                         int base, int cap, int32_t* stack) {
+  const int ndc = iclamp(nd, 0, p.L + p.I - 1);
+  int ptr = RT_LDG(p.set_off + ndc);
+  const int end = RT_LDG(p.set_off + ndc + 1);
+  const int gbase = RT_LDG(p.doc_base + ndc);
+  const int top = p.stack_size - 1;
+  int sp = 0, cnt = 0;
+  for (int it = 0; it < p.iter_cap; ++it) {
+    if (!((ptr < end || sp > 0) && base + cnt < cap)) break;
+    int sym;
+    if (sp > 0) {
+      sym = stack[imin(sp - 1, top)];
+      --sp;
+    } else {
+      sym = RT_LDG(p.A + imin(ptr, p.lenA - 1));
+      ++ptr;
+    }
+    if (sym < p.d) {
+      buf[base + cnt] = sym;
+      fbuf[base + cnt] = p.has_freqs ? gbase + cnt : 1;
+      ++cnt;
+    } else {
+      const int ridx = iclamp(sym - p.d - 1, 0, p.nrule - 1);
+      const int right = RT_LDG(p.rule_right + ridx);
+      const int left = RT_LDG(p.rule_left + ridx);
+      stack[imin(sp, top)] = right;  // left expands first
+      ++sp;
+      stack[imin(sp, top)] = left;
       ++sp;
     }
   }
-  return cnt;
+  return base + cnt;
+}
+
+// The cover loop: at most max_cover climbs from leaf ln while the next
+// leaf is <= rn, each followed by its node's expansion.  Returns the count.
+RT_HD int pdl_cover(const PdlView& p, int ln, int rn, int base, int cap,
+                    int max_cover, int32_t* buf, int32_t* fbuf, int32_t* stack) {
+  int i = ln;
+  for (int it = 0; it < max_cover && i <= rn; ++it) {
+    int nxt;
+    const int node = pdl_climb_one(p, i, rn, &nxt);
+    base = pdl_expand_one(p, node, buf, fbuf, base, cap, stack);
+    i = nxt;
+  }
+  return base;
+}
+
+// Top-k mode: each expanded entry's global position -> its stored
+// frequency, freq_vals[run of the position], for slots [from, to).
+RT_HD void pdl_freqs(const PdlView& p, int32_t* fbuf, int from, int to,
+                     int lane, int lanes) {
+  for (int s = from + lane; s < to; s += lanes) {
+    const int run = upper_bound(p.freq_gcum, p.nruns, fbuf[s]);
+    fbuf[s] = RT_LDG(p.freq_vals + imin(run, p.nruns - 1));
+  }
+}
+
+// Zeroes slots [from, cap) of both rows.
+RT_HD void pdl_zero_tail(int32_t* buf, int32_t* fbuf, int from, int cap,
+                         int lane, int lanes) {
+  for (int s = from + lane; s < cap; s += lanes) {
+    buf[s] = 0;
+    fbuf[s] = 0;
+  }
+}
+
+// One query of the gather, in the reference's order: head window, tail
+// window, cover; rows of max_buf entries.  Returns the count, which exceeds
+// max_buf when the buffer truncated.  The kernel runs the same pieces with
+// the windows and the cover on two warps at once.
+RT_HD int pdl_gather_one(const CsaView& c, const PdlView& p, int lo, int hi,
+                         int max_buf, int max_cover, int32_t* buf,
+                         int32_t* fbuf, int32_t* stack) {
+  const PdlGeometry g = pdl_geometry(p, lo, hi);
+  const int wend = g.wh + g.wt;
+  pdl_windows(c, g, buf, fbuf, max_buf, 0, 1);
+  const int count = pdl_cover(p, g.ln, g.rn, wend, max_buf, max_cover, buf, fbuf, stack);
+  if (p.has_freqs) pdl_freqs(p, fbuf, imin(wend, max_buf), imin(count, max_buf), 0, 1);
+  pdl_zero_tail(buf, fbuf, imin(count, max_buf), max_buf, 0, 1);
+  return count;
 }
 
 }  // namespace rt

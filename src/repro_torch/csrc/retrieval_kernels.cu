@@ -1,4 +1,4 @@
-// Hopper (sm_90a) launchers of the port's four kernels, with a plain C
+// Hopper (sm_90a) launchers of the port's five retrieval kernels, with a plain C
 // interface loaded through ctypes by repro_torch/kernels/_build.py.
 //
 // backward_search: replaces repro/kernels/backward_search.py,
@@ -11,12 +11,27 @@
 //   (__ldg); at n = 1M it fits in L2, at 16M it does not.
 //
 // ilcp_list: replaces repro/kernels/ilcp_list.py, ilcp_list_pallas /
-//   _ilcp_list_kernel.  One thread per query runs the Fig-1 recursion
-//   directly (the Pallas POP/SCAN lockstep machine exists for TPU SIMD and
-//   is not carried over); its interval stacks and seen-document bitmap live
-//   in global scratch allocated by the wrapper.  Bound on this card:
-//   latency of the dependent RMQ -> run -> DA gather chain, one query per
-//   thread with divergent trip counts.
+//   _ilcp_list_kernel.  One warp per query runs the Fig-1 recursion (the
+//   Pallas POP/SCAN lockstep machine exists for TPU SIMD and is not carried
+//   over).  Bound on this card: latency of the dependent pop -> run -> DA
+//   chain, not bytes.  The design shortens that chain: the interval stack
+//   (with each interval's argmin, resolved when it is pushed, the two
+//   children's RMQs issued by lanes 0 and 1 beside the run's reads) and the
+//   seen-document bitmap live in shared memory; the run's DA positions are
+//   read 32 at a time, one per lane, and tested against the bitmap and each
+//   other (__match_any_sync) at once; the query's root runs are found in the
+//   kernel.  A pop costs two dependent global reads (run_starts, then DA).
+//
+// pdl_gather: the port's own kernel (the reference's PDL gather,
+//   repro/core/pdl.py _pdl_gather, is XLA, not Pallas).  One block of two
+//   warps per query: warp 1 locates the partial-block windows through the
+//   CSA (up to 2 x block_size LF walks, one position per lane), while lane 0
+//   of warp 0 runs the serial Fig-4 climb and grammar expansion of the
+//   cover into the slots after the windows, with its grammar stack in
+//   shared memory; then both warps turn top-k entries' global positions
+//   into frequencies (one binary search per entry) and zero the row's tail.
+//   Bound on this card: latency of the LF walks' dependent reads and of the
+//   serial expansion, not bytes.
 //
 // rank: replaces repro/kernels/rank.py, rank_pallas / _rank_kernel.  One
 //   thread per query: one word and one prefix read at a data-dependent
@@ -30,9 +45,8 @@
 //   the helper the fused ILCP listing uses).  Bound on this card: bytes and
 //   latency of those four dependent, scattered reads.
 //
-// All four are first versions that are simple and right.  Making them fast
-// (cp.async/TMA staging of the wavelet levels, one warp per query with a
-// cooperative traversal, shared-memory stacks) is later work.
+// backward_search, rank and rmq are first versions that are simple and
+// right; cp.async/TMA staging of the wavelet levels is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,18 +74,45 @@ __global__ void ilcp_list_kernel(
     const int32_t* __restrict__ vilcp, const int32_t* __restrict__ table,
     const int32_t* __restrict__ run_starts, const int32_t* __restrict__ da,
     const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
-    const int32_t* __restrict__ lo_run, const int32_t* __restrict__ hi_run,
-    int32_t* __restrict__ stka, int32_t* __restrict__ stkb,
-    uint32_t* __restrict__ seen, int32_t* __restrict__ docs,
-    int32_t* __restrict__ cnt, int B, int levels, int rho, int n, int d,
-    int max_df, int seen_words) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= B) return;
+    int32_t* __restrict__ docs, int32_t* __restrict__ cnt, int levels,
+    int rho, int n, int d, int max_df) {
+  extern __shared__ int32_t smem[];
+  const int q = blockIdx.x;
   const int cap = rt::stack_cap(max_df);
-  cnt[q] = rt::ilcp_list_one(
-      vilcp, table, run_starts, da, levels, rho, n, d, max_df, lo[q], hi[q],
-      lo_run[q], hi_run[q], stka + (int64_t)q * cap, stkb + (int64_t)q * cap,
-      seen + (int64_t)q * seen_words, docs + (int64_t)q * max_df);
+  const int a = lo[q], b = hi[q];
+  const int c = rt::ilcp_list_one(
+      vilcp, table, run_starts, da, levels, rho, n, d, max_df, a, b,
+      rt::run_of(run_starts, rho, a), rt::run_of(run_starts, rho, b - 1),
+      smem, smem + cap, smem + 2 * cap,
+      reinterpret_cast<uint32_t*>(smem + 3 * cap), docs + (int64_t)q * max_df);
+  if (threadIdx.x == 0) cnt[q] = c;
+}
+
+constexpr int kGatherThreads = 2 * rt::kWarp;
+
+__global__ void __launch_bounds__(kGatherThreads) pdl_gather_kernel(
+    const rt::CsaView csa, const rt::PdlView pdl, const int32_t* __restrict__ lo,
+    const int32_t* __restrict__ hi, int32_t* __restrict__ buf,
+    int32_t* __restrict__ fbuf, int32_t* __restrict__ count, int max_buf,
+    int max_cover) {
+  extern __shared__ int32_t smem[];  // the grammar stack of the cover
+  __shared__ int total;
+  const int q = blockIdx.x;
+  const int t = threadIdx.x;
+  int32_t* rb = buf + (int64_t)q * max_buf;
+  int32_t* rf = fbuf + (int64_t)q * max_buf;
+  const rt::PdlGeometry g = rt::pdl_geometry(pdl, lo[q], hi[q]);
+  const int wend = g.wh + g.wt;
+  if (t == 0) {
+    total = rt::pdl_cover(pdl, g.ln, g.rn, wend, max_buf, max_cover, rb, rf, smem);
+  } else if (t >= rt::kWarp) {
+    rt::pdl_windows(csa, g, rb, rf, max_buf, t - rt::kWarp, rt::kWarp);
+  }
+  __syncthreads();
+  const int end = rt::imin(total, max_buf);
+  if (pdl.has_freqs) rt::pdl_freqs(pdl, rf, rt::imin(wend, max_buf), end, t, kGatherThreads);
+  rt::pdl_zero_tail(rb, rf, end, max_buf, t, kGatherThreads);
+  if (t == 0) count[q] = total;
 }
 
 __global__ void rank_kernel(const int32_t* __restrict__ words,
@@ -114,18 +155,65 @@ int rt_backward_search(const void* words, const void* prefix,
   return (int)cudaGetLastError();
 }
 
+// Shared memory per query: three interval stacks and the seen bitmap.  The
+// wrapper checks it against the card's limit before the launch.
 int rt_ilcp_list(const void* vilcp, const void* table, const void* run_starts,
-                 const void* da, const void* lo, const void* hi,
-                 const void* lo_run, const void* hi_run, void* stka,
-                 void* stkb, void* seen, void* docs, void* cnt, int B,
-                 int levels, int rho, int n, int d, int max_df,
-                 int seen_words, void* stream) {
-  ilcp_list_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+                 const void* da, const void* lo, const void* hi, void* docs,
+                 void* cnt, int B, int levels, int rho, int n, int d,
+                 int max_df, void* stream) {
+  const size_t smem =
+      sizeof(int32_t) * (3 * (size_t)rt::stack_cap(max_df) + (d + 31) / 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ilcp_list_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ilcp_list_kernel<<<B, rt::kWarp, smem, (cudaStream_t)stream>>>(
       (const int32_t*)vilcp, (const int32_t*)table,
       (const int32_t*)run_starts, (const int32_t*)da, (const int32_t*)lo,
-      (const int32_t*)hi, (const int32_t*)lo_run, (const int32_t*)hi_run,
-      (int32_t*)stka, (int32_t*)stkb, (uint32_t*)seen, (int32_t*)docs,
-      (int32_t*)cnt, B, levels, rho, n, d, max_df, seen_words);
+      (const int32_t*)hi, (int32_t*)docs, (int32_t*)cnt, levels, rho, n, d,
+      max_df);
+  return (int)cudaGetLastError();
+}
+
+// Operands in the order of rt::CsaView and rt::PdlView (pointers, then
+// sizes), the query ranges and the outputs (buf, fbuf: [B, max_buf];
+// count: [B]).  Shared memory: the grammar stack, stack_size entries.
+int rt_pdl_gather(
+    const void* words, const void* prefix, const void* zcount,
+    const void* counts, const void* sym_starts, const void* sampled,
+    const void* samples, const void* doc_starts, const void* leaf_starts,
+    const void* is_first_child, const void* parent_of, const void* next_leaf,
+    const void* set_off, const void* A, const void* rule_left,
+    const void* rule_right, const void* doc_base, const void* freq_vals,
+    const void* freq_gcum, const void* lo, const void* hi, void* buf,
+    void* fbuf, void* count, int levels, int stride, int n, int sample_rate,
+    int sampled_len, int sampled_m, int doc_len, int L, int I, int d,
+    int lenA, int nrule, int nruns, int block_size, int iter_cap,
+    int stack_size, int has_freqs, int B, int max_buf, int max_cover,
+    void* stream) {
+  const rt::CsaView csa{
+      (const int32_t*)words, (const int32_t*)prefix, (const int32_t*)zcount,
+      (const int32_t*)counts, (const int32_t*)sym_starts,
+      (const int32_t*)sampled, (const int32_t*)samples,
+      (const int32_t*)doc_starts, levels, stride, n, sample_rate,
+      sampled_len, sampled_m, doc_len};
+  const rt::PdlView pdl{
+      (const int32_t*)leaf_starts, (const uint8_t*)is_first_child,
+      (const int32_t*)parent_of, (const int32_t*)next_leaf,
+      (const int32_t*)set_off, (const int32_t*)A, (const int32_t*)rule_left,
+      (const int32_t*)rule_right, (const int32_t*)doc_base,
+      (const int32_t*)freq_vals, (const int32_t*)freq_gcum, L, I, d, lenA,
+      nrule, nruns, block_size, iter_cap, stack_size, has_freqs};
+  const size_t smem = sizeof(int32_t) * (size_t)stack_size;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pdl_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  pdl_gather_kernel<<<B, kGatherThreads, smem, (cudaStream_t)stream>>>(
+      csa, pdl, (const int32_t*)lo, (const int32_t*)hi, (int32_t*)buf,
+      (int32_t*)fbuf, (int32_t*)count, max_buf, max_cover);
   return (int)cudaGetLastError();
 }
 

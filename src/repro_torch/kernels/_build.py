@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("retrieval_kernels.cu", "model_kernels.cu", "flash_hopper.cu")
+SOURCES = ("retrieval_kernels.cu", "model_kernels.cu", "flash_hopper.cu", "probe_kernels.cu")
 HEADERS = ("retrieval_core.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,13 +39,18 @@ _LL = ctypes.c_longlong
 #: C signatures of the exported launchers: (argtypes) -> int error code.
 SIGNATURES = {
     "rt_backward_search": [_VP] * 8 + [_I] * 6 + [_VP],
-    "rt_ilcp_list": [_VP] * 13 + [_I] * 7 + [_VP],
+    "rt_ilcp_list": [_VP] * 8 + [_I] * 6 + [_VP],
+    "rt_pdl_gather": [_VP] * 24 + [_I] * 20 + [_VP],
     "rt_rank": [_VP] * 4 + [_I] + [_VP],
     "rt_rmq": [_VP] * 5 + [_I] * 3 + [_VP],
     "rt_flash_attention": [_VP] * 4 + [_I] * 8 + [_LL] * 12 + [_VP],
     "rt_flash_hopper": [_VP] * 4 + [_I] * 7 + [_LL] * 12 + [_VP],
     "rt_embedding_bag": [_VP] * 3 + [_I] * 5 + [_VP],
+    "rt_chase": [_VP, _I, _VP, _VP],
 }
+
+#: shared memory one block may use on the card (227 KB of the SM's 256 KB)
+MAX_SHARED_BYTES = 232_448
 
 _lib = None
 #: what the last build printed (``output``), its ptxas register / spill

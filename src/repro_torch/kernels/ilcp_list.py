@@ -4,7 +4,8 @@ the wrappers (counterpart of ``repro.kernels.ilcp_list`` and of
 
 The kernel (``csrc/retrieval_kernels.cu``, core in ``retrieval_core.cuh``)
 runs the Fig-1 recursion of ``repro.core.ilcp.ilcp_list_docs`` with one
-thread per query.  The plain version is the reference's batch-lockstep
+warp per query, its stacks and seen-document bitmap in shared memory and
+each run's document positions tested 32 at a time.  The plain version is the reference's batch-lockstep
 POP/SCAN machine (``repro.kernels.ref.ilcp_list_ref``) in PyTorch.  Both
 replay the per-query trajectory (pop order, push filters, truncation) and
 report documents in discovery order, so their integers are identical.
@@ -136,11 +137,10 @@ def ilcp_list(vilcp, table, run_starts, da, lo, hi, *, d: int, max_df: int):
     if B == 0 or max_df <= 0 or d <= 0:
         return (torch.full((B, max(max_df, 0)), -1, dtype=IDX, device=dev),
                 torch.zeros(B, dtype=IDX, device=dev))
-    lo_run = runs_of(run_starts, lo)
-    hi_run = runs_of(run_starts, hi - 1)
     if dev.type != "cuda":
-        return ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run,
-                               hi_run, d=d, max_df=max_df)
+        return ilcp_list_plain(vilcp, table, run_starts, da, lo, hi,
+                               runs_of(run_starts, lo), runs_of(run_starts, hi - 1),
+                               d=d, max_df=max_df)
     for name, t, dims in (("vilcp", vilcp, 1), ("table", table, 2),
                           ("run_starts", run_starts, 1), ("da", da, 1),
                           ("lo", lo, 1), ("hi", hi, 1)):
@@ -148,19 +148,16 @@ def ilcp_list(vilcp, table, run_starts, da, lo, hi, *, d: int, max_df: int):
     levels, rho = table.shape
     if vilcp.shape[0] != rho or run_starts.shape[0] != rho + 1 or hi.shape[0] != B:
         raise ValueError("ilcp_list: inconsistent operand shapes")
-    cap = stack_cap(max_df)
-    seen_words = -(-d // 32)
-    stka = torch.empty((B, cap), dtype=IDX, device=dev)
-    stkb = torch.empty((B, cap), dtype=IDX, device=dev)
-    seen = torch.zeros((B, seen_words), dtype=IDX, device=dev)
+    smem = 4 * (3 * stack_cap(max_df) + -(-d // 32))
+    if smem > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"ilcp_list: max_df={max_df} and d={d} need {smem} bytes of "
+                         f"shared memory per query, over the card's {_build.MAX_SHARED_BYTES}")
     docs = torch.empty((B, max_df), dtype=IDX, device=dev)
     cnt = torch.empty(B, dtype=IDX, device=dev)
     err = _build.library().rt_ilcp_list(
-        vilcp.data_ptr(), table.data_ptr(), run_starts.data_ptr(),
-        da.data_ptr(), lo.data_ptr(), hi.data_ptr(), lo_run.data_ptr(),
-        hi_run.data_ptr(), stka.data_ptr(), stkb.data_ptr(), seen.data_ptr(),
-        docs.data_ptr(), cnt.data_ptr(), B, levels, rho, int(da.shape[0]), d,
-        max_df, seen_words, torch.cuda.current_stream(dev).cuda_stream,
+        vilcp.data_ptr(), table.data_ptr(), run_starts.data_ptr(), da.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), docs.data_ptr(), cnt.data_ptr(), B, levels, rho,
+        int(da.shape[0]), d, max_df, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "ilcp_list")
     ilcp_list.launches += 1

@@ -52,13 +52,18 @@ extern "C" void core_ilcp_list(
     int32_t* cnt, int B, int levels, int rho, int n, int d, int max_df) {
   const int cap = rt::stack_cap(max_df);
   for (int q = 0; q < B; ++q) {
-    std::vector<int32_t> sa(cap), sb(cap);
-    std::vector<uint32_t> seen((d + 31) / 32, 0u);
+    std::vector<int32_t> sa(cap), sb(cap), sr(cap);
+    std::vector<uint32_t> seen((d + 31) / 32, 0xffffffffu);  // the core zeroes it
     cnt[q] = rt::ilcp_list_one(vilcp, table, run_starts, da, levels, rho, n,
                                d, max_df, lo[q], hi[q], lo_run[q], hi_run[q],
-                               sa.data(), sb.data(), seen.data(),
+                               sa.data(), sb.data(), sr.data(), seen.data(),
                                docs + (long)q * max_df);
   }
+}
+
+extern "C" void core_run_of(const int32_t* run_starts, int rho,
+                            const int32_t* pos, int32_t* out, int Q) {
+  for (int q = 0; q < Q; ++q) out[q] = rt::run_of(run_starts, rho, pos[q]);
 }
 
 extern "C" void core_rank(const int32_t* words, const int32_t* prefix,
@@ -75,14 +80,14 @@ extern "C" void core_rmq(const int32_t* values, const int32_t* table,
 """
 
 
-@pytest.fixture(scope="module")
-def core(tmp_path_factory):
+def compile_core(shim: str, out: Path) -> ctypes.CDLL:
+    """Build ``shim`` (C++ that includes ``retrieval_core.cuh``) with g++
+    into a shared library in ``out`` and load it; skip without g++."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler (g++) to build the kernel core")
-    out = tmp_path_factory.mktemp("core")
     src = out / "shim.cpp"
-    src.write_text(SHIM)
+    src.write_text(shim)
     lib = out / "libcore.so"
     subprocess.run(
         [cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I", str(CSRC),
@@ -90,6 +95,11 @@ def core(tmp_path_factory):
         check=True, capture_output=True, text=True,
     )
     return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def core(tmp_path_factory):
+    return compile_core(SHIM, tmp_path_factory.mktemp("core"))
 
 
 def _p(a: np.ndarray):
@@ -165,8 +175,12 @@ def _ilcp_inputs():
     return coll.d, arrays, lo, hi
 
 
-@pytest.mark.parametrize("max_df", [1, 2, 8, 64])
+@pytest.mark.parametrize("max_df", [1, 2, 8, 64, 31, 33, 300])
 def test_core_ilcp_list(core, max_df):
+    """The warp core (run here as one lane playing the warp's 32 in turn:
+    DA positions tested in chunks of 32 against the bitmap and each other,
+    argmins resolved at push time); max_df 31, 33 and 300 cut a run's
+    scan inside and at the edges of a chunk, or not at all."""
     d, (vilcp, table, run_starts, da), lo, hi = _ilcp_inputs()
     t = [torch.from_numpy(a) for a in (vilcp, table, run_starts, da, lo, hi)]
     lo_run = runs_of(t[2], t[4])
@@ -190,6 +204,17 @@ def test_core_ilcp_list(core, max_df):
     )
     np.testing.assert_array_equal(cnt, np.asarray(rc))
     np.testing.assert_array_equal(docs, np.asarray(rd))
+
+
+def test_core_run_of(core):
+    """The kernel's root runs: ``runs_of`` for every position, -1 and n."""
+    _, (_, _, run_starts, da), _, _ = _ilcp_inputs()
+    n, rho = da.shape[0], run_starts.shape[0] - 1
+    pos = np.arange(-1, n + 1, dtype=np.int32)
+    out = np.zeros_like(pos)
+    core.core_run_of(_p(run_starts), rho, _p(pos), _p(out), pos.shape[0])
+    want = runs_of(torch.from_numpy(run_starts), torch.from_numpy(pos))
+    np.testing.assert_array_equal(out, want.numpy())
 
 
 @pytest.mark.parametrize("W,Q", [(1, 3), (5, 40), (70, 500)])
