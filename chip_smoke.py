@@ -49,11 +49,16 @@ Phases (any failure exits non-zero; nothing is caught):
    events after a warm-up; device times by CUDA events around calls queued
    behind a spin kernel, the profiler's beside them (it drops the device
    events of some windows); rank and RMQ also on one stream of 2^22
-   queries.  Bounds: bytes over the memory rate, and a latency bound, the
-   dependent global reads on the slowest query's path through the kernel,
-   each round at one dependent load's latency: an L1 hit's where the path
-   read the line before, else an L2 hit's, both measured by the probe (16
-   KB and 16 MB cycles; a 256 MB one beside them).
+   queries; beside them one empty kernel's device time, the launch floor.
+   Bounds: bytes over the memory rate, and a latency bound, the dependent
+   global reads on the slowest query's path through the kernel, each round
+   at one dependent load's latency: an L1 hit's where the path (for the
+   PDL gather, its block in an earlier phase) read the line before, else
+   an L2 hit's, both measured by the probe (16 KB and 16 MB cycles; a 256
+   MB one beside them).  The PDL gather's path is its block's: per chunk
+   of 256 leaves the longest climb, the chain's links and the list sizes,
+   per expansion phase (four chunks' members) the longest member's
+   expansion; its slowest query's cover is printed.
 5. LM serving: llama3.2-3b at full width and depth (28 x 3,072, 3.6B
    parameters, bf16, seeded random weights), ``attention_impl="flash"``.
    (a) 4 prompts of 2,048 tokens: one ``forward_prefill`` into a cache of
@@ -219,14 +224,15 @@ class Chain:
     """The dependent global reads on one query's path through a kernel, in
     rounds: the reads of a round are issued together, and the round waits
     for them.  A round costs one L1 hit's latency when every 128-byte line
-    it reads (keys: array name and line) was read earlier on the same path,
-    else one L2 hit's: the path's latency bound is ``ns(lat)``."""
+    it reads (keys: array name and line) was read earlier on the same path
+    or is in ``seen`` (lines its block read in an earlier phase), else one
+    L2 hit's: the path's latency bound is ``ns(lat)``."""
 
-    def __init__(self):
-        self.lines, self.l2, self.l1 = set(), 0, 0
+    def __init__(self, seen=frozenset()):
+        self.lines, self.seen, self.l2, self.l1 = set(), seen, 0, 0
 
     def read(self, *keys):
-        fresh = any(k not in self.lines for k in keys)
+        fresh = any(k not in self.lines and k not in self.seen for k in keys)
         self.lines.update(keys)
         self.l2 += fresh
         self.l1 += not fresh
@@ -1093,6 +1099,19 @@ def load_latency_ns(dev, footprints=(16 << 10, 16 << 20, 256 << 20), steps=200_0
             "dram_ns": result[footprints[2]]}
 
 
+def launch_floor_ms(dev, reps=200) -> float:
+    """Device milliseconds per launch of the probe's empty kernel, queued
+    behind the spin like the index kernels' device times: the floor under
+    a small kernel's device time."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = queued_time_ms(lambda: _build.check(lib.rt_empty(stream), "empty"), reps)
+    log(f"[latency] empty kernel: {ms * 1e3:.3f} us a launch, queued")
+    return ms
+
+
 def no_sync_checks(full_svc, full_ranges, topk_svc, topk_ranges, max_df):
     """The three executor calls under ``set_sync_debug_mode("error")``: any
     host sync inside them raises."""
@@ -1114,19 +1133,28 @@ def no_sync_checks(full_svc, full_ranges, topk_svc, topk_ranges, max_df):
         "no host sync")
 
 
-def pdl_walk_ns(hp, csa, doc_starts, lo, hi, max_buf, max_cover, lat):
-    """Latency bound of one query of the gather kernel, in ns, and its
-    rounds: the leaf searches, then the longer of two paths that run side
-    by side, lane 0's serial cover (per climb step the node's parent and
-    first-child flag, then its next leaf; per node its list bounds; per
-    expansion step the list symbol, or a rule's two children) as a
-    ``Chain``, and the windows' LF walks (per lane its positions, each step
-    a sampled-position search and a wavelet descent, every read taken as an
-    L1 hit)."""
+def pdl_walk_ns(hp, csa, doc_starts, lo, hi, max_buf, max_cover, lat, lanes, rounds_held):
+    """Latency bound of one query of the gather kernel (listing mode), in
+    ns, its rounds and its cover's shape, on the block's critical path:
+    the leaf searches; the windows' LF walks spread over the ``lanes``
+    threads (per thread its positions, each step a sampled-position search
+    and a wavelet descent, every read taken as an L1 hit); then per chunk of
+    ``lanes`` leaves the longest climb of a leaf (per step the node's parent
+    and first-child flag, then its next leaf), the chain's serial links
+    where a climb ends past the leaf after it (one shared-memory read each,
+    at an L1 hit's latency) and one round of the members' list sizes; and
+    per expansion phase (the members of up to ``rounds_held`` chunks, as
+    the kernel holds them) the longest member's expansion (its list bounds,
+    then per step the list symbol or a rule's two children).  Each thread's
+    reads are a ``Chain`` that counts as L1 hits the lines the block read
+    in an earlier phase.  The scan's shuffles, the barriers, the shared
+    counter that deals the members, the shared-memory stack and a thread's
+    other members are not counted."""
     from repro_torch.core.csa import csa_lookup
 
     L, top = hp["L"], hp["L"] + hp["I"] - 1
-    ls = hp["leaf_starts"]
+    ls, db, so = hp["leaf_starts"], hp["doc_base"], hp["set_off"]
+    A, d, rl, rr = hp["A"], hp["d"], hp["rule_left"], hp["rule_right"]
     ch = Chain()
     ln = ch.search("leaf_starts", ls[:L], lo)
     rn = ch.search("leaf_starts", ls[1:], hi, right=True) - 1
@@ -1136,42 +1164,9 @@ def pdl_walk_ns(hp, csa, doc_starts, lo, hi, max_buf, max_cover, lat):
     tail_lo = max(int(ls[min(max(rn + 1, ln), L)]), head_hi)
     wh, wt = min(max(head_hi - lo, 0), hp["block_size"]), min(max(hi - tail_lo, 0),
                                                                hp["block_size"])
-    head = (ch.l2, ch.l1)
-    i, base, covers = ln, wh + wt, 0
-    A, d, rl, rr = hp["A"], hp["d"], hp["rule_left"], hp["rule_right"]
-    while covers < max_cover and i <= rn:
-        node, nxt = i, i + 1
-        while True:
-            nc = min(node, top)
-            ch.read(("parent_of", nc >> 5), ("is_first_child", nc >> 7))
-            par = int(hp["parent_of"][nc])
-            if not hp["is_first_child"][nc] or par < 0:
-                break
-            ch.read(("next_leaf", max(par, 0) >> 5))
-            nl = int(hp["next_leaf"][min(max(par, 0), max(hp["I"] - 1, 0))])
-            if nl - 1 > rn:
-                break
-            node, nxt = L + par, nl
-        nd = min(max(node, 0), top)
-        ch.read(("set_off", nd >> 5), ("set_off", (nd + 1) >> 5), ("doc_base", nd >> 5))
-        ptr, end = int(hp["set_off"][nd]), int(hp["set_off"][nd + 1])
-        stack, cnt = [], 0
-        for _ in range(hp["iter_cap"]):
-            if not ((ptr < end or stack) and base + cnt < max_buf):
-                break
-            if stack:
-                sym = stack.pop()
-            else:
-                ch.read(("A", ptr >> 5))
-                sym, ptr = int(A[ptr]), ptr + 1
-            if sym < d:
-                cnt += 1
-            else:
-                r = min(max(sym - d - 1, 0), len(rl) - 1)
-                ch.read(("rule_right", r >> 5), ("rule_left", r >> 5))
-                stack += [int(rr[r]), int(rl[r])]
-        base, i, covers = base + cnt, nxt, covers + 1
-    cover_ns = ch.ns(lat) - (head[0] * lat["l2_ns"] + head[1] * lat["l1_ns"])
+    seen = set(ch.lines)
+    rounds = {"l2_rounds": ch.l2, "l1_rounds": ch.l1}
+    head_ns = ch.ns(lat)
     windows_ns = 0.0
     if wh + wt:
         entries = min(wh + wt, max_buf)
@@ -1183,12 +1178,99 @@ def pdl_walk_ns(hp, csa, doc_starts, lo, hi, max_buf, max_cover, lat):
         search = ceil_log2(int(csa.sampled.pos.shape[0]) + 1)
         per = ((sa - prev) * (search + csa.wm.levels) + search + 1
                + ceil_log2(len(doc_starts) + 1))
-        lanes = np.zeros(32)
-        np.add.at(lanes, np.arange(entries) % 32, per)
-        windows_ns = float(lanes.max()) * lat["l1_ns"]
-    total = head[0] * lat["l2_ns"] + head[1] * lat["l1_ns"] + max(cover_ns, windows_ns)
-    return total, {"l2_rounds": ch.l2, "l1_rounds": ch.l1, "cover_ns": cover_ns,
-                   "windows_ns": windows_ns}
+        per_thread = np.zeros(lanes)
+        np.add.at(per_thread, np.arange(entries) % lanes, per)
+        windows_ns = float(per_thread.max()) * lat["l1_ns"]
+
+    def climb(leaf):
+        c, node, nxt, steps = Chain(seen), leaf, leaf + 1, 0
+        while True:
+            nc = min(node, top)
+            c.read(("parent_of", nc >> 5), ("is_first_child", nc >> 7))
+            par = int(hp["parent_of"][nc])
+            if not hp["is_first_child"][nc] or par < 0:
+                break
+            c.read(("next_leaf", max(par, 0) >> 5))
+            nl = int(hp["next_leaf"][min(max(par, 0), max(hp["I"] - 1, 0))])
+            if nl - 1 > rn:
+                break
+            node, nxt, steps = L + par, nl, steps + 1
+        return node, nxt, steps, c
+
+    def expand(nd, base):
+        c = Chain(seen)
+        c.read(("set_off", nd >> 5), ("set_off", (nd + 1) >> 5), ("doc_base", nd >> 5))
+        ptr, end, stack, cnt, steps = int(so[nd]), int(so[nd + 1]), [], 0, 0
+        for _ in range(hp["iter_cap"]):
+            if not ((ptr < end or stack) and base + cnt < max_buf):
+                break
+            steps += 1
+            if stack:
+                sym = stack.pop()
+            else:
+                c.read(("A", ptr >> 5))
+                sym, ptr = int(A[ptr]), ptr + 1
+            if sym < d:
+                cnt += 1
+            else:
+                r = min(max(sym - d - 1, 0), len(rl) - 1)
+                c.read(("rule_right", r >> 5), ("rule_left", r >> 5))
+                stack += [int(rr[r]), int(rl[r])]
+        return steps, c
+
+    def phase(chains):
+        """The phase's slowest thread, in ns; its rounds counted, and every
+        line the phase read marked seen for the next phases."""
+        slow = max(chains, key=lambda c: c.ns(lat))
+        rounds["l2_rounds"] += slow.l2
+        rounds["l1_rounds"] += slow.l1
+        for c in chains:
+            seen.update(c.lines)
+        return slow.ns(lat)
+
+    shape = {"members": 0, "chunks": 0, "climb_steps": 0, "links": 0, "max_member_steps": 0,
+             "expansion_phases": 0}
+    head, end, cover_ns, held = ln, wh + wt, 0.0, []
+    while True:
+        if (head <= rn and shape["members"] < max_cover and end < max_buf
+                and len(held) + lanes <= rounds_held * lanes):
+            valid = min(lanes, rn - head + 1)
+            climbs = [climb(leaf) for leaf in range(head, head + valid)]
+            cover_ns += phase([c for *_, c in climbs])
+            room = max_cover - shape["members"]
+            if all(nxt == head + k + 1 for k, (_, nxt, _, _) in enumerate(climbs)):
+                members = climbs[:min(valid, room)]
+                head += len(members)
+            else:
+                members, leaf = [], head
+                while leaf - head < valid and len(members) < room:
+                    members.append(climbs[leaf - head])
+                    leaf = members[-1][1]
+                head = leaf
+                shape["links"] += len(members)
+                cover_ns += len(members) * lat["l1_ns"]
+            lists = []
+            for nd, *_ in members:
+                lists.append(Chain(seen))
+                lists[-1].read(("doc_base", nd >> 5), ("doc_base", (nd + 1) >> 5))
+            cover_ns += phase(lists)
+            for nd, *_ in members:
+                held.append((nd, end))
+                end += int(db[nd + 1] - db[nd])
+            shape["chunks"] += 1
+            shape["members"] += len(members)
+            shape["climb_steps"] += sum(st for *_, st, _ in members)
+            continue
+        if not held:
+            break
+        expansions = [expand(nd, base) for nd, base in held]
+        cover_ns += phase([c for _, c in expansions])
+        shape["expansion_phases"] += 1
+        shape["max_member_steps"] = max([shape["max_member_steps"]]
+                                        + [st for st, _ in expansions])
+        held = []
+    rounds.update(head_ns=head_ns, windows_ns=windows_ns, cover_ns=cover_ns, cover=shape)
+    return head_ns + windows_ns + cover_ns, rounds
 
 
 def pdl_kernel_checks(full_svc, full_batches, topk, lat):
@@ -1198,7 +1280,9 @@ def pdl_kernel_checks(full_svc, full_batches, topk, lat):
     edge ranges, at max_buf 4,096 and 64 and max_cover 1,024 and 4; every
     count held to the host replay of the cover.  Then timed at the main
     path's shape (phase 2, engine pdl, B = 32, max_buf 4,096)."""
-    from repro_torch.kernels.pdl_gather import pdl_gather, pdl_gather_plain
+    from repro_torch.kernels.pdl_gather import (
+        GATHER_THREADS, PDL_ROUNDS, pdl_gather, pdl_gather_plain,
+    )
 
     dev = full_svc.da.device
     tsvc = topk["svc"]
@@ -1274,8 +1358,12 @@ def pdl_kernel_checks(full_svc, full_batches, topk, lat):
         entries, _, windows = pdl_gather_entries(hp, a, b, 1024)
         taken += windows if windows >= MAX_BUF else min(entries, MAX_BUF)
         window_total += min(windows, MAX_BUF)
-        paths.append(pdl_walk_ns(hp, csa, doc_starts, a, b, MAX_BUF, 1024, lat))
+        paths.append(pdl_walk_ns(hp, csa, doc_starts, a, b, MAX_BUF, 1024, lat, GATHER_THREADS,
+                                 PDL_ROUNDS))
     lat_ns, rounds = max(paths, key=lambda x: x[0])
+    log(f"[kernels] pdl_gather slowest query's path: {lat_ns / 1e3:.2f} us "
+        f"(head {rounds['head_ns']:.0f} ns, windows {rounds['windows_ns']:.0f} ns, cover "
+        f"{rounds['cover_ns']:.0f} ns); its cover: {json.dumps(rounds['cover'])}")
     nbytes = B * 8 + B * MAX_BUF * 8 + B * 4 + 4 * taken + 8 * window_total
     return [dict(
         name="pdl_gather", route="cuda", source="src/repro_torch/csrc/retrieval_kernels.cu",
@@ -1924,9 +2012,12 @@ def main() -> int:
     records = kernel_checks(svc, full_batches, large, lat)
     records += primitive_kernel_checks(svc, large, wm_args, lat)
     records += pdl_kernel_checks(svc, full_batches, topk, lat)
+    floor = launch_floor_ms(dev)
     for r in records:
         r.update(l1_latency_ns=lat["l1_ns"], l2_latency_ns=lat["l2_ns"],
-                 dram_latency_ns=lat["dram_ns"])
+                 dram_latency_ns=lat["dram_ns"], launch_floor_ms=floor)
+    log("[kernels] device ms (empty-kernel floor " + f"{floor:.5f}): " + ", ".join(
+        f"{r['name']} {r['device_ms']:.5f}" for r in records))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     del svc, full_batches, large, topk
     free_device_memory()

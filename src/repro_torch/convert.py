@@ -21,6 +21,7 @@ same function on the same weights.
 from __future__ import annotations
 
 import dataclasses
+import types
 import typing
 
 import numpy as np
@@ -30,7 +31,7 @@ from repro_torch.common import TensorDataclass, resolve_device
 from repro_torch.core.csa import CSA
 from repro_torch.core.ilcp import ILCPIndex
 from repro_torch.core.pdl import PDLIndex
-from repro_torch.core.sada import SadaCount
+from repro_torch.core.sada import VARIANTS, SadaCount
 from repro_torch.core.suffix import Collection
 from repro_torch.models.transformer import LMConfig, param_shapes
 from repro_torch.serve.retrieval import RetrievalService
@@ -44,13 +45,18 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def from_numpy(cls, fields: dict, device="cuda"):
-    """Build a ``cls`` index object from a dict of its fields."""
+    """Build a ``cls`` index object from a dict of its fields.  A field of
+    a union of index types takes the member whose fields the dict holds."""
     dev = resolve_device(device)
     hints = typing.get_type_hints(cls)
     kwargs = {}
     for f in dataclasses.fields(cls):
         v = fields[f.name]
         kind = hints[f.name]
+        if isinstance(kind, types.UnionType) and isinstance(v, dict):
+            kind = next(k for k in typing.get_args(kind)
+                        if isinstance(k, type) and issubclass(k, TensorDataclass)
+                        and all(g.name in v for g in dataclasses.fields(k)))
         if isinstance(kind, type) and issubclass(kind, TensorDataclass):
             kwargs[f.name] = from_numpy(kind, v, dev)
         elif kind is torch.Tensor:
@@ -67,8 +73,8 @@ def service_from_numpy(coll: Collection, csa: dict, ilcp: dict, sada: dict,
     ``pdl_topk`` it serves no ``topk`` or ``tfidf``); ``knobs`` are its
     other fields (``occ_df_threshold``, ``brute_window``)."""
     dev = resolve_device(device)
-    if sada.get("variant", "sparse") != "sparse":
-        raise ValueError("only the 'sparse' Sada variant is ported")
+    if sada.get("variant", "sparse") not in VARIANTS:
+        raise ValueError(f"only the Sada variants {VARIANTS} are ported")
     return RetrievalService(
         coll=coll,
         csa=from_numpy(CSA, csa, dev),

@@ -1,15 +1,18 @@
-"""Sadakane's document-counting structure, ``"sparse"`` variant (Sada-S of
-Section 6.4.1; counterpart of ``repro.core.sada``).
+"""Sadakane's document-counting structure, ``"plain"`` (Sada) and
+``"sparse"`` (Sada-S) variants of Section 6.4.1 (counterpart of
+``repro.core.sada``).
 
 H[k] counts the redundant suffixes charged to LCP slot k: every adjacent
 same-document pair (c[j], j) is charged to the leftmost minimum of
 LCP[c[j]+1 .. j].  The unary code of the slots (one 1 per slot, then H[k]
-0s) is stored as a sparse bitvector, and a range's
+0s) is stored as a plain bitvector with rank support (``"plain"``, the
+default, as the reference's) or a sparse one (``"sparse"``, what the
+service builds), and a range's
 
     df = (hi - lo) - (select1(hi-1) - (hi-1)) + (select1(lo) - lo).
 
 The argmin table over LCP is built on the device in int32.  The other
-encodings (plain, rle, sparse_sparse, filter_plain) are not ported yet.
+encodings (rle, sparse_sparse, filter_plain) are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,10 +23,15 @@ import torch
 
 from repro_torch.common import IDX, TensorDataclass
 from repro_torch.core.suffix import SuffixData
-from repro_torch.succinct.bitvector import SparseBitvector, sparse_from_positions
+from repro_torch.succinct.bitvector import (
+    PlainBitvector,
+    SparseBitvector,
+    plain_from_bits,
+    sparse_from_positions,
+)
 from repro_torch.succinct.rmq import argmin_table, leftmost_argmin
 
-VARIANTS = ("sparse",)
+VARIANTS = ("plain", "sparse")
 
 
 def compute_h_slots(data: SuffixData) -> torch.Tensor:
@@ -42,9 +50,9 @@ def compute_h_slots(data: SuffixData) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class SadaCount(TensorDataclass):
-    """hp: the unary H' bitvector (positions of its ones)."""
+    """hp: the unary H' bitvector, plain or sparse per ``variant``."""
 
-    hp: SparseBitvector
+    hp: PlainBitvector | SparseBitvector
     n: int
     variant: str
     num_slots: int
@@ -53,7 +61,7 @@ class SadaCount(TensorDataclass):
         return self.hp.modeled_bits()
 
 
-def build_sada(data: SuffixData, variant: str = "sparse") -> SadaCount:
+def build_sada(data: SuffixData, variant: str = "plain") -> SadaCount:
     if variant not in VARIANTS:
         raise ValueError(f"Sada variant {variant!r} is not ported (have {VARIANTS})")
     slots = compute_h_slots(data)[1:].to(torch.int64)
@@ -63,8 +71,13 @@ def build_sada(data: SuffixData, variant: str = "sparse") -> SadaCount:
     if num_slots:
         pos[1:] = torch.cumsum(slots[:-1] + 1, 0)
     total = num_slots + int(slots.sum())
-    return SadaCount(hp=sparse_from_positions(pos, total), n=data.n,
-                     variant=variant, num_slots=num_slots)
+    if variant == "plain":
+        bits = torch.zeros(total, dtype=torch.uint8, device=slots.device)
+        bits[pos] = 1
+        hp = plain_from_bits(bits)
+    else:
+        hp = sparse_from_positions(pos, total)
+    return SadaCount(hp=hp, n=data.n, variant=variant, num_slots=num_slots)
 
 
 def sada_count_batch(s: SadaCount, lo, hi):

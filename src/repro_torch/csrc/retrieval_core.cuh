@@ -101,6 +101,71 @@ RT_HD int lane_count() { return 1; }
 RT_HD void warp_sync() {}
 #endif
 
+// Block helpers, for code that a whole block runs (lane = threadIdx.x of
+// lanes = blockDim.x threads).  Every host pass calls such code with
+// lanes == 1, one thread playing the block's threads in turn, phase by
+// phase, so the barriers vanish.
+#ifdef __CUDA_ARCH__
+RT_HD void block_sync() { __syncthreads(); }
+RT_HD bool block_all(bool x) { return __syncthreads_and(x) != 0; }
+#else
+RT_HD void block_sync() {}
+RT_HD bool block_all(bool x) { return x; }
+#endif
+
+// *x += v, returning the old *x: atomically on the device (shared or
+// global memory), in turn on the host.
+RT_HD int fetch_add(int32_t* x, int v) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(x, v);
+#else
+  const int old = *x;
+  *x += v;
+  return old;
+#endif
+}
+
+// Exclusive prefix sums of v[0, m) in place, each from `base`; returns the
+// sum.  Device: the whole block, one entry per thread (m <= lanes, lanes a
+// multiple of kWarp, at most 1024), by warp shuffles and one warp's pass
+// over the warp sums (sums: lanes / kWarp + 1 entries); host: a loop.
+RT_HD int block_exclusive_scan(int32_t* v, int m, int base, int32_t* sums,
+                               int lane, int lanes) {
+#ifdef __CUDA_ARCH__
+  const int w = lane / kWarp, l = lane % kWarp, nw = lanes / kWarp;
+  const int x = lane < m ? v[lane] : 0;
+  int inc = x;
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (l >= o) inc += y;
+  }
+  if (l == kWarp - 1) sums[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    const int ws = l < nw ? sums[l] : 0;
+    int wi = ws;
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, wi, o);
+      if (l >= o) wi += y;
+    }
+    if (l < nw) sums[l] = wi - ws;
+    if (l == kWarp - 1) sums[nw] = wi;
+  }
+  __syncthreads();
+  if (lane < m) v[lane] = base + sums[w] + inc - x;
+  return sums[nw];
+#else
+  (void)sums, (void)lane, (void)lanes;
+  int acc = 0;
+  for (int k = 0; k < m; ++k) {
+    const int x = v[k];
+    v[k] = base + acc;
+    acc += x;
+  }
+  return acc;
+#endif
+}
+
 // First k in [0, len) with a[k] >= x (len when none): torch.searchsorted.
 RT_HD int lower_bound(const int32_t* a, int len, int x) {
   int lo = 0, hi = len;
@@ -410,24 +475,24 @@ RT_HD int pdl_climb_one(const PdlView& p, int leaf, int rn, int* nxt) {
 }
 
 // Decompresses node nd's list into buf from base on, at most cap - base
-// entries and iter_cap steps, with the grammar stack (stack_size entries; a
-// full stack overwrites its top slot while sp still grows, as the
-// reference's does).  fbuf takes 1 in listing mode and, in top-k mode, the
-// entry's global position doc_base[nd] + cnt, which pdl_freqs turns into
-// its frequency.  Returns the new base.
+// entries and iter_cap steps, with the grammar stack (stack_size entries,
+// entry i at stack[i * stride]; a full stack overwrites its top slot while
+// sp still grows, as the reference's does).  fbuf takes 1 in listing mode
+// and, in top-k mode, the entry's global position doc_base[nd] + cnt,
+// which pdl_freqs turns into its frequency.  Returns the new base.
 RT_HD int pdl_expand_one(const PdlView& p, int nd, int32_t* buf, int32_t* fbuf,
-                         int base, int cap, int32_t* stack) {
+                         int base, int cap, int32_t* stack, int stride) {
   const int ndc = iclamp(nd, 0, p.L + p.I - 1);
   int ptr = RT_LDG(p.set_off + ndc);
   const int end = RT_LDG(p.set_off + ndc + 1);
   const int gbase = RT_LDG(p.doc_base + ndc);
   const int top = p.stack_size - 1;
-  int sp = 0, cnt = 0;
-  for (int it = 0; it < p.iter_cap; ++it) {
-    if (!((ptr < end || sp > 0) && base + cnt < cap)) break;
+  int sp = 0, cnt = 0, it = 0;
+  while (it < p.iter_cap && (ptr < end || sp > 0) && base + cnt < cap) {
+    ++it;
     int sym;
     if (sp > 0) {
-      sym = stack[imin(sp - 1, top)];
+      sym = stack[imin(sp - 1, top) * stride];
       --sp;
     } else {
       sym = RT_LDG(p.A + imin(ptr, p.lenA - 1));
@@ -441,27 +506,147 @@ RT_HD int pdl_expand_one(const PdlView& p, int nd, int32_t* buf, int32_t* fbuf,
       const int ridx = iclamp(sym - p.d - 1, 0, p.nrule - 1);
       const int right = RT_LDG(p.rule_right + ridx);
       const int left = RT_LDG(p.rule_left + ridx);
-      stack[imin(sp, top)] = right;  // left expands first
+      stack[imin(sp, top) * stride] = right;  // left expands first
       ++sp;
-      stack[imin(sp, top)] = left;
+      stack[imin(sp, top) * stride] = left;
       ++sp;
     }
   }
   return base + cnt;
 }
 
-// The cover loop: at most max_cover climbs from leaf ln while the next
-// leaf is <= rn, each followed by its node's expansion.  Returns the count.
+// The cover loop in the reference's order: at most max_cover climbs from
+// leaf ln while the next leaf is <= rn, each followed by its node's
+// expansion.  Returns the count.
 RT_HD int pdl_cover(const PdlView& p, int ln, int rn, int base, int cap,
                     int max_cover, int32_t* buf, int32_t* fbuf, int32_t* stack) {
   int i = ln;
   for (int it = 0; it < max_cover && i <= rn; ++it) {
     int nxt;
     const int node = pdl_climb_one(p, i, rn, &nxt);
-    base = pdl_expand_one(p, node, buf, fbuf, base, cap, stack);
+    base = pdl_expand_one(p, node, buf, fbuf, base, cap, stack, 1);
     i = nxt;
   }
   return base;
+}
+
+// Chunks of leaves whose members are held for one expansion phase.
+constexpr int kPdlRounds = 4;
+
+// Scratch of the block-wide cover walk (shared memory on the device) for
+// chunks of `chunk` leaves, with room for kPdlRounds chunks' members.
+struct PdlScratch {
+  int32_t* node;   // [kPdlRounds * chunk] held members' nodes; a chunk's
+                   // climbs land after them
+  int32_t* off;    // [kPdlRounds * chunk] their entry counts, then first slots
+  int32_t* next;   // [chunk] the leaf after each climb's node
+  int32_t* sums;   // [chunk / kWarp + 1] the device scan's warp sums
+  int32_t* chain;  // [2] the chunk's members and the next chunk's head;
+                   // [0] then the next member to expand
+  int32_t* stack;  // [stack_size * chunk] thread l's entry e at e * chunk + l
+};
+
+RT_HD int pdl_scratch_ints(int chunk, int stack_size) {
+  return chunk * (2 * kPdlRounds + 1 + stack_size) + chunk / kWarp + 1 + 2;
+}
+
+RT_HD PdlScratch pdl_scratch(int32_t* mem, int chunk) {
+  PdlScratch s;
+  s.node = mem;
+  s.off = s.node + kPdlRounds * chunk;
+  s.next = s.off + kPdlRounds * chunk;
+  s.sums = s.next + chunk;
+  s.chain = s.sums + chunk / kWarp + 1;
+  s.stack = s.chain + 2;
+  return s;
+}
+
+// Nodes node[0, held) expanded at slots off[0, held), side by side:
+// thread `lane` expands node lane, then, each time it is done, the next
+// node not yet taken (*next, which starts at lanes), so a thread with a
+// long node takes no others.  `stack`: this thread's.
+RT_HD void pdl_expand_members(const PdlView& p, const int32_t* node, const int32_t* off,
+                              int held, int cap, int32_t* buf, int32_t* fbuf,
+                              int32_t* stack, int stride, int32_t* next, int lane) {
+  for (int k = lane; k < held; k = fetch_add(next, 1))
+    pdl_expand_one(p, node[k], buf, fbuf, off[k], cap, stack, stride);
+}
+
+// The cover of leaves ln..rn walked by a block, `chunk` leaves at a time
+// (device: chunk == lanes, one leaf per thread).  Per chunk: (1) every leaf
+// from the head is climbed at once; a climb depends only on its leaf and
+// rn, so a leaf on the chain climbs as the serial walk's does.  (2) The
+// chain from the head picks the members, at most max_cover in all: every
+// climbed leaf when every climb ends at the leaf after it (the usual case:
+// one __syncthreads_and), else by following the links in shared memory.
+// (3) A scan of the members' entry counts |D_v| = doc_base[v + 1] -
+// doc_base[v] gives each member its first slot.  Members are held until
+// kPdlRounds chunks' worth could overflow the scratch or the walk ends;
+// then (4) the threads expand the held members side by side, each thread
+// taking the next member when its last is done (pdl_expand_members), each
+// below cap with the thread's own stack.
+// The walk ends at rn, at max_cover members, or once the slots reach cap:
+// past that the serial walk writes nothing and its count stays cap.  The
+// slots assume that a node's expansion emits exactly |D_v| entries within
+// iter_cap steps and stack_size entries, as a well-formed index's does (a
+// node of m entries and |A_v| list symbols takes 2m - |A_v| steps).
+// Returns pdl_cover's count: base when base >= cap, else
+// min(base + entries, cap).
+RT_HD int pdl_cover_block(const PdlView& p, int ln, int rn, int base, int cap,
+                          int max_cover, int chunk, int32_t* buf, int32_t* fbuf,
+                          const PdlScratch& s, int lane, int lanes) {
+  int head = ln, members = 0, end = base, held = 0;
+  for (;;) {
+    if (head <= rn && members < max_cover && end < cap &&
+        held + chunk <= kPdlRounds * chunk) {
+      int32_t* node = s.node + held;
+      int32_t* off = s.off + held;
+      const int valid = imin(chunk, rn - head + 1);
+      bool run = true;
+      for (int k = lane; k < valid; k += lanes) {
+        int nxt;
+        node[k] = pdl_climb_one(p, head + k, rn, &nxt);
+        s.next[k] = nxt;
+        run = run && nxt == head + k + 1;
+      }
+      run = block_all(run);  // also the barrier before the chain reads the climbs
+      if (lane == 0) {
+        const int room = max_cover - members;
+        int m = 0, leaf = head;
+        if (run) {
+          m = imin(valid, room);
+          leaf = head + m;
+        } else {
+          while (leaf - head < valid && m < room) {  // compacts node[] in place
+            node[m++] = node[leaf - head];
+            leaf = s.next[leaf - head];
+          }
+        }
+        s.chain[0] = m;
+        s.chain[1] = leaf;
+      }
+      block_sync();
+      const int m = s.chain[0];
+      head = s.chain[1];
+      for (int k = lane; k < m; k += lanes) {
+        const int nd = iclamp(node[k], 0, p.L + p.I - 1);
+        off[k] = RT_LDG(p.doc_base + nd + 1) - RT_LDG(p.doc_base + nd);
+      }
+      const int total = block_exclusive_scan(off, m, end, s.sums, lane, lanes);
+      end += total;
+      members += m;
+      held += m;
+      continue;
+    }
+    if (held == 0) break;
+    if (lane == 0) s.chain[0] = lanes;  // the next member to take
+    block_sync();
+    pdl_expand_members(p, s.node, s.off, held, cap, buf, fbuf, s.stack + lane, chunk,
+                       s.chain, lane);
+    held = 0;
+    block_sync();  // the next chunks overwrite node and off
+  }
+  return base >= cap ? base : imin(end, cap);
 }
 
 // Top-k mode: each expanded entry's global position -> its stored
@@ -483,10 +668,10 @@ RT_HD void pdl_zero_tail(int32_t* buf, int32_t* fbuf, int from, int cap,
   }
 }
 
-// One query of the gather, in the reference's order: head window, tail
-// window, cover; rows of max_buf entries.  Returns the count, which exceeds
-// max_buf when the buffer truncated.  The kernel runs the same pieces with
-// the windows and the cover on two warps at once.
+// One query of the gather in the reference's order, serially: head window,
+// tail window, cover; rows of max_buf entries.  Returns the count, which
+// exceeds max_buf when the windows overran the buffer.  The order that
+// pdl_gather_block's pieces are held to.
 RT_HD int pdl_gather_one(const CsaView& c, const PdlView& p, int lo, int hi,
                          int max_buf, int max_cover, int32_t* buf,
                          int32_t* fbuf, int32_t* stack) {
@@ -496,6 +681,24 @@ RT_HD int pdl_gather_one(const CsaView& c, const PdlView& p, int lo, int hi,
   const int count = pdl_cover(p, g.ln, g.rn, wend, max_buf, max_cover, buf, fbuf, stack);
   if (p.has_freqs) pdl_freqs(p, fbuf, imin(wend, max_buf), imin(count, max_buf), 0, 1);
   pdl_zero_tail(buf, fbuf, imin(count, max_buf), max_buf, 0, 1);
+  return count;
+}
+
+// One query of the gather by a block (the kernel's body): the windows'
+// positions spread over every thread, then the block-wide cover, then the
+// frequencies and the row's tail.  The same integers as pdl_gather_one.
+RT_HD int pdl_gather_block(const CsaView& c, const PdlView& p, int lo, int hi,
+                           int max_buf, int max_cover, int chunk, int32_t* buf,
+                           int32_t* fbuf, const PdlScratch& s, int lane,
+                           int lanes) {
+  const PdlGeometry g = pdl_geometry(p, lo, hi);
+  const int wend = g.wh + g.wt;
+  pdl_windows(c, g, buf, fbuf, max_buf, lane, lanes);
+  const int count = pdl_cover_block(p, g.ln, g.rn, wend, max_buf, max_cover, chunk,
+                                    buf, fbuf, s, lane, lanes);
+  const int end = imin(count, max_buf);
+  if (p.has_freqs) pdl_freqs(p, fbuf, imin(wend, max_buf), end, lane, lanes);
+  pdl_zero_tail(buf, fbuf, end, max_buf, lane, lanes);
   return count;
 }
 

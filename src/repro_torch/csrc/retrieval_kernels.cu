@@ -23,16 +23,27 @@
 //   kernel.  A pop costs two dependent global reads (run_starts, then DA).
 //
 // pdl_gather: the port's own kernel (the reference's PDL gather,
-//   repro/core/pdl.py _pdl_gather, is XLA, not Pallas).  One block of two
-//   warps per query: warp 1 locates the partial-block windows through the
-//   CSA (up to 2 x block_size LF walks, one position per lane), while lane 0
-//   of warp 0 runs the serial Fig-4 climb and grammar expansion of the
-//   cover into the slots after the windows, with its grammar stack in
-//   shared memory; then both warps turn top-k entries' global positions
-//   into frequencies (one binary search per entry) and zero the row's tail.
-//   Bound on this card: latency of the LF walks' dependent reads and of the
-//   serial expansion, not bytes.
-//
+//   repro/core/pdl.py _pdl_gather, is XLA, not Pallas).  One block of
+//   kGatherThreads threads per query walks the query's cover together
+//   (rt::pdl_gather_block): the partial-block windows' CSA locates (up to
+//   2 x (block_size - 1) LF walks) spread over every thread; then, a chunk
+//   of kGatherThreads leaves at a time, every thread climbs one leaf from
+//   the chain's head speculatively, one __syncthreads_and finds the common
+//   chain where every climb ends at the leaf after it (else lane 0 follows
+//   the links in shared memory), and a block scan of the members' list
+//   sizes (doc_base) gives each member its slots; the members of up to
+//   rt::kPdlRounds chunks are then expanded side by side, each thread
+//   taking the next member from a shared counter when its last is done,
+//   with its own grammar stack (shared memory, interleaved so that a
+//   warp's stack slots fall in distinct banks); last, top-k entries'
+//   global positions become frequencies (one binary search per entry) and
+//   the row's tail is zeroed.  Bound on this card: latency, not bytes: per
+//   chunk a climb's dependent reads, the chain and the scan, and per
+//   expansion phase the longest member's expansion, one dependent read of
+//   a list symbol or a rule's children per step.  A node's expansion stays
+//   serial: where one node holds most of a query's entries (the top-k
+//   PDL's internal nodes), that node is the kernel's time.
+
 // rank: replaces repro/kernels/rank.py, rank_pallas / _rank_kernel.  One
 //   thread per query: one word and one prefix read at a data-dependent
 //   address (rt::wm_rank1, the helper the fused backward search uses), a
@@ -88,31 +99,20 @@ __global__ void ilcp_list_kernel(
   if (threadIdx.x == 0) cnt[q] = c;
 }
 
-constexpr int kGatherThreads = 2 * rt::kWarp;
+constexpr int kGatherThreads = 256;
 
-__global__ void __launch_bounds__(kGatherThreads) pdl_gather_kernel(
+__global__ void __launch_bounds__(kGatherThreads, 1) pdl_gather_kernel(
     const rt::CsaView csa, const rt::PdlView pdl, const int32_t* __restrict__ lo,
     const int32_t* __restrict__ hi, int32_t* __restrict__ buf,
     int32_t* __restrict__ fbuf, int32_t* __restrict__ count, int max_buf,
     int max_cover) {
-  extern __shared__ int32_t smem[];  // the grammar stack of the cover
-  __shared__ int total;
+  extern __shared__ int32_t smem[];  // rt::PdlScratch for kGatherThreads leaves
   const int q = blockIdx.x;
-  const int t = threadIdx.x;
-  int32_t* rb = buf + (int64_t)q * max_buf;
-  int32_t* rf = fbuf + (int64_t)q * max_buf;
-  const rt::PdlGeometry g = rt::pdl_geometry(pdl, lo[q], hi[q]);
-  const int wend = g.wh + g.wt;
-  if (t == 0) {
-    total = rt::pdl_cover(pdl, g.ln, g.rn, wend, max_buf, max_cover, rb, rf, smem);
-  } else if (t >= rt::kWarp) {
-    rt::pdl_windows(csa, g, rb, rf, max_buf, t - rt::kWarp, rt::kWarp);
-  }
-  __syncthreads();
-  const int end = rt::imin(total, max_buf);
-  if (pdl.has_freqs) rt::pdl_freqs(pdl, rf, rt::imin(wend, max_buf), end, t, kGatherThreads);
-  rt::pdl_zero_tail(rb, rf, end, max_buf, t, kGatherThreads);
-  if (t == 0) count[q] = total;
+  const int c = rt::pdl_gather_block(
+      csa, pdl, lo[q], hi[q], max_buf, max_cover, kGatherThreads,
+      buf + (int64_t)q * max_buf, fbuf + (int64_t)q * max_buf,
+      rt::pdl_scratch(smem, kGatherThreads), threadIdx.x, kGatherThreads);
+  if (threadIdx.x == 0) count[q] = c;
 }
 
 __global__ void rank_kernel(const int32_t* __restrict__ words,
@@ -178,7 +178,9 @@ int rt_ilcp_list(const void* vilcp, const void* table, const void* run_starts,
 
 // Operands in the order of rt::CsaView and rt::PdlView (pointers, then
 // sizes), the query ranges and the outputs (buf, fbuf: [B, max_buf];
-// count: [B]).  Shared memory: the grammar stack, stack_size entries.
+// count: [B]).  Shared memory: the block's rt::PdlScratch, whose grammar
+// stacks (stack_size per thread) are most of it; above 48 KB the kernel's
+// limit is raised, and a card that cannot give it returns the error.
 int rt_pdl_gather(
     const void* words, const void* prefix, const void* zcount,
     const void* counts, const void* sym_starts, const void* sampled,
@@ -205,7 +207,8 @@ int rt_pdl_gather(
       (const int32_t*)rule_right, (const int32_t*)doc_base,
       (const int32_t*)freq_vals, (const int32_t*)freq_gcum, L, I, d, lenA,
       nrule, nruns, block_size, iter_cap, stack_size, has_freqs};
-  const size_t smem = sizeof(int32_t) * (size_t)stack_size;
+  const size_t smem =
+      sizeof(int32_t) * (size_t)rt::pdl_scratch_ints(kGatherThreads, stack_size);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         pdl_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -47,6 +47,7 @@ SIGNATURES = {
     "rt_flash_hopper": [_VP] * 4 + [_I] * 7 + [_LL] * 12 + [_VP],
     "rt_embedding_bag": [_VP] * 3 + [_I] * 5 + [_VP],
     "rt_chase": [_VP, _I, _VP, _VP],
+    "rt_empty": [_VP],
 }
 
 #: shared memory one block may use on the card (227 KB of the SM's 256 KB)

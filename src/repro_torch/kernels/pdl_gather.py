@@ -9,11 +9,15 @@ frequency in top-k mode).  It is the port's own kernel: the reference's
 ``vmap``), with no Pallas counterpart.
 
 The kernel (``csrc/retrieval_kernels.cu``, ``pdl_gather_kernel``; core
-``rt::pdl_gather_one`` and its pieces in ``retrieval_core.cuh``) serves one
-query per block of two warps.  The plain version is the same state machine
-batched with masks; it syncs with the host once per round of each masked
-loop.  Both follow each query's trajectory and its ``max_buf`` /
-``max_cover`` truncation, so their integers are identical.
+``rt::pdl_gather_block`` and its pieces in ``retrieval_core.cuh``) serves
+one query per block of ``GATHER_THREADS`` threads, which climb a chunk of
+the cover's leaves at once, give the chunk's nodes their offsets by a scan
+of their list sizes, and expand the nodes of up to ``PDL_ROUNDS`` chunks
+side by side.  The plain version
+is the reference's serial state machine batched with masks; it syncs with
+the host once per round of each masked loop.  Both give each query's
+entries in the reference's order with its ``max_buf`` / ``max_cover``
+truncation, so their integers are identical.
 """
 
 from __future__ import annotations
@@ -30,6 +34,13 @@ if TYPE_CHECKING:
     from repro_torch.core.pdl import PDLIndex
 
 
+#: threads of the kernel's block, and leaves of one chunk of the cover
+#: (``kGatherThreads`` in ``csrc/retrieval_kernels.cu``)
+GATHER_THREADS = 256
+#: chunks whose members one expansion phase takes (``rt::kPdlRounds``)
+PDL_ROUNDS = 4
+
+
 def stack_size(index: PDLIndex) -> int:
     """Entries of the grammar expansion stack (the reference's bound)."""
     return 2 * index.max_rule_depth + 4
@@ -38,6 +49,15 @@ def stack_size(index: PDLIndex) -> int:
 def iter_cap(index: PDLIndex) -> int:
     """Steps of one node's expansion (the reference's bound)."""
     return 4 * index.max_set_len + 16
+
+
+def shared_bytes(index: PDLIndex) -> int:
+    """The kernel block's shared memory (``rt::pdl_scratch_ints``): per
+    thread a grammar stack, ``PDL_ROUNDS`` held members (node and slot) and
+    one climb's next leaf, then the scan's warp sums and the chain's two
+    words."""
+    return 4 * (GATHER_THREADS * (2 * PDL_ROUNDS + 1 + stack_size(index))
+                + GATHER_THREADS // 32 + 3)
 
 
 # ---------------------------------------------------------------------------
@@ -226,10 +246,11 @@ def pdl_gather(index: PDLIndex, csa: CSA, lo, hi, max_buf: int, max_cover: int):
     _build.check_operand("hi", hi, 1, dev)
     if hi.shape[0] != B:
         raise ValueError("pdl_gather: lo and hi differ in length")
-    smem = 4 * stack_size(index)
+    smem = shared_bytes(index)
     if smem > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"pdl_gather: max_rule_depth={index.max_rule_depth} needs a grammar "
-                         f"stack of {smem} bytes, over the card's {_build.MAX_SHARED_BYTES}")
+        raise ValueError(f"pdl_gather: max_rule_depth={index.max_rule_depth} needs grammar "
+                         f"stacks of {smem} bytes for {GATHER_THREADS} threads, over the "
+                         f"card's {_build.MAX_SHARED_BYTES}")
     docs = torch.empty((B, max_buf), dtype=IDX, device=dev)
     tf = torch.empty((B, max_buf), dtype=IDX, device=dev)
     count = torch.empty(B, dtype=IDX, device=dev)
