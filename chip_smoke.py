@@ -16,8 +16,17 @@ Phases (any failure exits non-zero; nothing is caught):
    scale 3.2 (n = 1,024,320, d = 320) without the top-k PDL; ``plan``,
    ``count`` and ``list_docs`` (engines auto, ilcp, brute, pdl) on batches
    of 32 patterns, held against a host oracle from the port's own document
-   array, with the kernel launch counts each endpoint must make (one PDL
-   gather per ``list_docs`` of every engine).
+   array.  Every call goes through the service's program cache: one CUDA
+   graph per (kind, bucket, window), captured at a bucket's first call and
+   replayed after.  Each call's launches are those of one replay of each
+   program it ran (``REPLAY_LAUNCHES``: 1 backward search per ``plan`` /
+   ``count``; 2 + 1 ILCP + 1 PDL gather per ``list_docs`` of every engine,
+   1 + 1 + 1 with a pinned window), and once more for a program the call
+   captured (its warm-up run); each answer is bit-identical to the same
+   work run eagerly on the same padded batch.  Then ``compile_counts``,
+   each capture's seconds and pool bytes, per-batch latencies of graph and
+   eager in turns on the same batches, and one warm ``list_docs[auto]``
+   batch profiled both ways (wall, device ms, activities, busy share).
 2b. Top-k and tf-idf on a ``RetrievalService`` with both PDLs for
    dna-p001 at scale 1.6 (n = 256,160, d = 160; the top-k PDL's host
    build, which keeps every internal node's list, does not finish at
@@ -28,8 +37,12 @@ Phases (any failure exits non-zero; nothing is caught):
    PDL cover to count the entries the gather takes); ``tfidf`` with two
    terms per query as the serving CLI builds them, ranked-AND and
    ranked-OR, held to a host float32 oracle with the same fold within
-   2 ulp.  Launch counts (one PDL gather per ``topk`` and ``tfidf``),
-   per-batch latencies and each batch's engine mix.
+   2 ulp.  Through the program cache as in phase 2: launches per call (2
+   backward searches, 1 pinned, + 1 PDL gather per ``topk``; 1 + 1 per
+   ``tfidf``), each answer bit-identical to the eager run,
+   ``compile_counts``, captures, graph and eager latencies per batch, and
+   one warm ``topk[pdl]`` and ``tfidf[or]`` batch profiled both ways; each
+   batch's engine mix.
 3. Large index, no PDL: suffix data, CSA, Sada and ILCP on the card for
    dna-p001 at scale 12.8 (n ~ 16.4M, d = 1,280); ``plan_queries`` and
    ``ilcp_list_docs_da_planned`` on 1,024 patterns in batches of 128.
@@ -95,6 +108,7 @@ order through 28 layers; logits reach about 5).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -269,6 +283,185 @@ def require(ok, msg="check failed"):
 def reset_counts(kernels):
     for k in kernels:
         k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Endpoint calls through the program cache (phases 2 and 2b)
+# ---------------------------------------------------------------------------
+
+#: launches of one replay of each endpoint program, per kernel
+REPLAY_LAUNCHES = {
+    "plan": {"backward_search": 1},
+    "list": {"backward_search": 1, "ilcp_list": 1, "pdl_gather": 1},
+    "topk": {"backward_search": 1, "pdl_gather": 1},
+    "tfidf": {"backward_search": 1, "pdl_gather": 1},
+}
+
+
+@contextlib.contextmanager
+def uncounted(kernels):
+    """Launches inside the block (the eager comparisons) stay out of the
+    wrappers' counts."""
+    saved = [k.launches for k in kernels]
+    try:
+        yield
+    finally:
+        for k, n in zip(kernels, saved):
+            k.launches = n
+
+
+def checked_call(svc, kernels, kinds, name, fns, lat, warm):
+    """One endpoint call through the service's program cache, then
+    (uncounted) the same work eagerly; ``fns`` is (graph call, eager call).
+    The kernels must have counted one replay's launches of each program in
+    ``kinds``, and once more for each program the call captured (its
+    warm-up run; the capture launches nothing); the answers must be
+    bit-identical.  Appends the host seconds to ``lat[name]`` and counts the
+    call in ``warm[name]`` when it captured nothing."""
+    graph_fn, eager_fn = fns
+    before = [k.launches for k in kernels]
+    tally = dict(svc.compile_counts)
+    t = time.perf_counter()
+    out = graph_fn()
+    lat.setdefault(name, []).append(time.perf_counter() - t)
+    new = {kind: svc.compile_counts.get(kind, 0) - tally.get(kind, 0) for kind in kinds}
+    want = tuple(sum(REPLAY_LAUNCHES[kind].get(k.__name__, 0) * (1 + new[kind])
+                     for kind in kinds) for k in kernels)
+    delta = tuple(k.launches - b for k, b in zip(kernels, before))
+    require(delta == want, (name, "launches", delta, "want", want, "captured", new))
+    require(sum(svc.compile_counts.values()) == sum(tally.values()) + sum(new.values()),
+            (name, "captured a program of another kind", tally, svc.compile_counts))
+    warm[name] = warm.get(name, 0) + (sum(new.values()) == 0)
+    with uncounted(kernels):
+        expected = eager_fn()
+    require(same_bits(out, expected), (name, "graph answer differs from the eager one"))
+    return out
+
+
+def eager_endpoint(svc, kind, batch, engine="auto", max_df=None, k=None, max_buf=None,
+                   conjunctive=False, max_terms=4):
+    """What the endpoint computes, run eagerly (the program functions, no
+    cache) on the same padded batch with the Brute-L window of the
+    service's last call of that bucket, and the window's plan pass where
+    the window is automatic: host arrays as the endpoint returns them."""
+    from repro_torch.serve import retrieval as R
+    from repro_torch.serve.planner import plan_queries
+
+    if kind == "tfidf":
+        pats, lens = svc._pad_terms(batch, max_terms)
+        docs, scores = R._tfidf_program(k, conjunctive, max_buf, svc.csa, svc.pdl_topk,
+                                        svc.sada, pats, lens)
+        return docs[:len(batch)].cpu().numpy(), scores[:len(batch)].cpu().numpy()
+    pats, lens, B = svc._pad_batch(batch)
+    knobs = svc._knobs(engine)
+
+    def plan_pass():
+        plan = plan_queries(svc.csa, svc.sada, pats, lens, *knobs)
+        return {n: getattr(plan, n)[:B].cpu().numpy() for n in ("lo", "hi", "occ", "df", "engine")}
+
+    if kind == "plan":
+        return plan_pass()
+    key = (tuple(pats.shape), max_df, max_buf) if kind == "list" else \
+        (tuple(pats.shape), k, max_buf)
+    if svc.brute_window is None:
+        plan_pass()
+        win = svc._brute_windows[(kind, key)]
+    else:
+        win = min(svc.brute_window, max_buf)
+    if kind == "list":
+        docs, cnt, _ = R._list_program(max_df, win, max_buf, svc.csa, svc.ilcp, svc.pdl_list,
+                                       svc.da, svc.sada, pats, lens, *knobs)
+    else:
+        docs, cnt, _ = R._topk_program(k, svc._topk_max_df(max_buf), win, max_buf, svc.csa,
+                                       svc.pdl_topk, svc.sada, pats, lens, *knobs)
+    return docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()
+
+
+def pinned(svc, fn):
+    """``fn`` as a call made with the service's Brute-L window pinned to
+    ``MAX_BUF``."""
+    def run():
+        svc.brute_window = MAX_BUF
+        try:
+            return fn()
+        finally:
+            svc.brute_window = None
+    return run
+
+
+def eager_count(svc, batch):
+    return eager_endpoint(svc, "plan", batch)["df"]
+
+
+def same_bits(a, b) -> bool:
+    """Arrays (or tuples or dicts of them) equal in dtype, shape and bits."""
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_bits(a[x], b[x]) for x in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def graph_against_eager(svc, kernels, calls, label, rounds=3):
+    """Per-batch host seconds of each endpoint call, graph replay and eager
+    in turns on the same batches (``calls``: name -> list of (graph call,
+    eager call) per batch), after the checked run; the graph calls are warm
+    replays (checked: they capture nothing).  Logs min / median / max."""
+    out = {}
+    programs = sum(svc.compile_counts.values())
+    for _ in range(rounds):
+        for name, per_batch in calls.items():
+            times = out.setdefault(name, {"graph": [], "eager": []})
+            for graph_fn, eager_fn in per_batch:
+                t = time.perf_counter()
+                graph_fn()
+                times["graph"].append(time.perf_counter() - t)
+                with uncounted(kernels):
+                    t = time.perf_counter()
+                    eager_fn()
+                    times["eager"].append(time.perf_counter() - t)
+    require(sum(svc.compile_counts.values()) == programs, "a timed graph call captured")
+    for name, times in out.items():
+        g, e = np.asarray(times["graph"]), np.asarray(times["eager"])
+        log(f"[{label}] {name} per batch, s: graph min {g.min():.5f} median {np.median(g):.5f} "
+            f"max {g.max():.5f}; eager min {e.min():.5f} median {np.median(e):.5f} "
+            f"max {e.max():.5f}; median ratio {np.median(e) / np.median(g):.2f}")
+
+
+def log_programs(svc, label):
+    """compile_counts and each program's capture seconds, pool bytes and
+    launches per replay; every program is a captured graph that launches
+    its kind's kernels."""
+    log(f"[{label}] compile_counts {svc.compile_counts}")
+    for (kind, statics), prog in svc.compiled_programs().items():
+        require(prog.graph is not None, (kind, statics, "not a captured graph"))
+        require(prog.launches == REPLAY_LAUNCHES[kind], (kind, statics, prog.launches))
+        log(f"[{label}] program {kind} {statics}: capture {prog.capture_s:.4f} s, pool "
+            f"{prog.pool_bytes} bytes, launches per replay {prog.launches}")
+
+
+def profile_graph_and_eager(label, name, graph_fn, eager_fn, kernels, reps=5):
+    """One warm batch under the profiler, graph and eager: wall, device ms,
+    device activities and busy share (device over wall); the profiler
+    slows the host, so also the median wall of ``reps`` unprofiled calls
+    and the device ms over it."""
+    for mode, fn in (("graph", graph_fn), ("eager", eager_fn)):
+        with uncounted(kernels):
+            prof = profile_calls(fn, 1)
+            walls = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t) * 1e3)
+        wall = float(np.median(walls))
+        top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:3]
+        dev_ms = prof["device_ms"]
+        log(f"[{label}] {name} {mode} profile, last batch: wall {prof['wall_ms']:.3f} ms, "
+            f"device {dev_ms} ms, {prof['kernels_per_call']:.0f} device activities, busy "
+            f"{dev_ms / prof['wall_ms'] if dev_ms else None}; unprofiled wall {wall:.3f} ms, "
+            f"device over it {dev_ms / wall if dev_ms else None}; top "
+            + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top))
 
 
 # ---------------------------------------------------------------------------
@@ -470,40 +663,47 @@ def phase_full_path(dev, bs, il, pg):
 
     kernels = (bs, il, pg)
     batches = [pats[i:i + 32] for i in range(0, len(pats), 32)]
-    lat = {}
+
+    def endpoint_calls(batch):
+        """(graph call, eager call) of each endpoint case on ``batch``."""
+        calls = {
+            "plan": (lambda: svc.plan(batch), lambda: eager_endpoint(svc, "plan", batch)),
+            "count": (lambda: svc.count(batch), lambda: eager_count(svc, batch)),
+        }
+        for engine in ("auto", "ilcp", "brute", "pdl"):
+            calls[f"list_docs[{engine}]"] = (
+                lambda e=engine: svc.list_docs_arrays(batch, max_df=max_df, engine=e,
+                                                      max_buf=MAX_BUF),
+                lambda e=engine: eager_endpoint(svc, "list", batch, e, max_df,
+                                                max_buf=MAX_BUF))
+        calls["list_docs[auto,pinned]"] = (
+            pinned(svc, lambda: svc.list_docs_arrays(batch, max_df=max_df, max_buf=MAX_BUF)),
+            pinned(svc, lambda: eager_endpoint(svc, "list", batch, "auto", max_df,
+                                               max_buf=MAX_BUF)))
+        return calls
+
+    per_batch = [endpoint_calls(b) for b in batches]
+    lat, warm = {}, {}
     ilcp_nonempty = 0
     reset_counts(kernels)  # the main path's run starts here
-    for batch in batches:
-        def call(name, fn, *a, **kw):
-            before = [k.launches for k in kernels]
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            lat.setdefault(name, []).append(time.perf_counter() - t)
-            return out, tuple(k.launches - b for k, b in zip(kernels, before))
-
-        plan, delta = call("plan", svc.plan, batch)
-        require(delta == (1, 0, 0), ("plan launches", delta))
+    for batch, fns in zip(batches, per_batch):
+        plan = checked_call(svc, kernels, ("plan",), "plan", fns["plan"], lat, warm)
         lo, hi = plan["lo"], plan["hi"]
         truth_df = np.asarray([len(set(da[a:b].tolist())) for a, b in zip(lo, hi)])
         require(np.all(hi - lo == plan["occ"]) and np.all(plan["occ"] > 0))
         require(np.array_equal(plan["df"], truth_df), "plan df != distinct docs of DA[lo:hi]")
-        cnt, delta = call("count", svc.count, batch)
-        require(delta == (1, 0, 0), ("count launches", delta))
+        cnt = checked_call(svc, kernels, ("plan",), "count", fns["count"], lat, warm)
         require(np.array_equal(cnt, truth_df), "count != distinct docs of DA[lo:hi]")
         for engine in ("auto", "ilcp", "brute", "pdl"):
-            (docs, c), delta = call(f"list_docs[{engine}]", svc.list_docs_arrays, batch,
-                                    max_df=max_df, engine=engine, max_buf=MAX_BUF)
-            require(delta == (2, 1, 1), (engine, "list launches", delta))
+            name = f"list_docs[{engine}]"
+            docs, c = checked_call(svc, kernels, ("plan", "list"), name, fns[name], lat, warm)
             require(docs.shape == (len(batch), max_df) and docs.dtype == np.int32)
             codes = plan["engine"] if engine == "auto" else [ENGINE_CODES[engine]] * len(c)
             check_listing(docs, c, lo, hi, da, max_df, engine_buffers(codes, MAX_BUF))
             if engine == "ilcp":
                 ilcp_nonempty += int((c > 0).sum())
-        svc.brute_window = MAX_BUF
-        (docs, c), delta = call("list_docs[auto,pinned]", svc.list_docs_arrays, batch,
-                                max_df=max_df, engine="auto", max_buf=MAX_BUF)
-        svc.brute_window = None
-        require(delta == (1, 1, 1), ("pinned list launches", delta))
+        docs, c = checked_call(svc, kernels, ("list",), "list_docs[auto,pinned]",
+                               fns["list_docs[auto,pinned]"], lat, warm)
         check_listing(docs, c, lo, hi, da, max_df, engine_buffers(plan["engine"], MAX_BUF))
         lists = svc.list_docs(batch, max_df=max_df)
         require([len(x) for x in lists] == c.tolist())
@@ -511,23 +711,23 @@ def phase_full_path(dev, bs, il, pg):
                 "pdl_gather": pg.launches}
     require(all(v > 0 for v in launches.values()), launches)
     require(ilcp_nonempty > 0, "ilcp_list returned no documents under engine='ilcp'")
-    log(f"[full] {len(batches)} batches of 32, launches {launches}")
-    log("[full] host seconds per batch: "
+    require(all(n > 0 for n in warm.values()), ("an endpoint made no warm call", warm))
+    log(f"[full] {len(batches)} batches of 32, launches {launches}; warm calls (replays "
+        f"only) {warm}")
+    log("[full] host seconds per batch, first pass (a capture where the bucket or its "
+        "window was new): "
         + "; ".join(f"{k} " + " ".join(f"{x:.4f}" for x in v) for k, v in lat.items()))
+    log_programs(svc, "full")
 
+    graph_against_eager(svc, kernels, {name: [pb[name] for pb in per_batch]
+                                       for name in per_batch[0]}, "full")
     # where a batch's time goes: device busy time against the host clock,
     # for the last batch under the automatic engine choice
-    prof = profile_calls(lambda: svc.list_docs_arrays(
-        batches[-1], max_df=max_df, engine="auto", max_buf=MAX_BUF), 1)
-    top = sorted(prof.pop("by_kernel_ms").items(), key=lambda kv: -kv[1])[:5]
-    prof["top_kernels_ms"] = top
     engines = svc.plan(batches[-1])["engine"]
-    prof["engines"] = {name: int((engines == code).sum())
-                       for name, code in (("brute", 1), ("ilcp", 2), ("pdl", 3))}
-    log(f"[full] list_docs[auto] profile, last batch {prof['engines']}: wall "
-        f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']} ms, "
-        f"{prof['kernels_per_call']:.0f} device activities; top "
-        + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top))
+    mix = {name: int((engines == code).sum())
+           for name, code in (("brute", 1), ("ilcp", 2), ("pdl", 3))}
+    profile_graph_and_eager("full", f"list_docs[auto] {mix}", *per_batch[-1]["list_docs[auto]"],
+                            kernels)
     log(f"[full] space report {svc.space_report()}")
     return svc, batches, launches
 
@@ -709,30 +909,33 @@ def phase_topk_tfidf(dev, kernels):
     plans = [svc.plan(b) for b in batches]
     term_plans = [svc.plan([t for qry in qs for t in qry]) for qs in tf_queries]
 
-    lat, mix, exact = {}, [], {"topk": 0, "tfidf": 0}
+    lat, warm, mix, exact = {}, {}, [], {"topk": 0, "tfidf": 0}
     worst_ulp = 0
+    topk_cases = (("auto", False), ("brute", False), ("pdl", False), ("ilcp", False),
+                  ("auto", True))
+
+    def topk_fns(batch, engine, pin):
+        """(graph call, eager call) of one topk case."""
+        fns = (lambda: svc.topk_arrays(batch, k=TOPK_K, engine=engine, max_buf=MAX_BUF),
+               lambda: eager_endpoint(svc, "topk", batch, engine, k=TOPK_K, max_buf=MAX_BUF))
+        return tuple(pinned(svc, f) for f in fns) if pin else fns
+
+    def tfidf_fns(queries, conj):
+        return (lambda: svc.tfidf_arrays(queries, k=TOPK_K, conjunctive=conj, max_terms=4,
+                                         max_buf=TFIDF_MAX_BUF),
+                lambda: eager_endpoint(svc, "tfidf", queries, k=TOPK_K, conjunctive=conj,
+                                       max_buf=TFIDF_MAX_BUF))
+
     reset_counts(kernels)  # the topk/tfidf path's run starts here
     for bi, batch in enumerate(batches):
         plan = plans[bi]
         lo, hi = plan["lo"], plan["hi"]
         mix.append({name: int((plan["engine"] == code).sum())
                     for name, code in (("brute", 1), ("ilcp", 2), ("pdl", 3))})
-
-        def call(name, fn, *a, **kw):
-            before = [k.launches for k in kernels]
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            lat.setdefault(name, []).append(time.perf_counter() - t)
-            return out, tuple(k.launches - b for k, b in zip(kernels, before))
-
-        for engine, pinned in (("auto", False), ("brute", False), ("pdl", False),
-                               ("ilcp", False), ("auto", True)):
-            svc.brute_window = MAX_BUF if pinned else None
-            name = f"topk[{engine}{',pinned' if pinned else ''}]"
-            (docs, tfs), delta = call(name, svc.topk_arrays, batch, k=TOPK_K, engine=engine,
-                                      max_buf=MAX_BUF)
-            svc.brute_window = None
-            require(delta == ((1 if pinned else 2), 0, 0, 0, 1), (name, "launches", delta))
+        for engine, pin in topk_cases:
+            name = f"topk[{engine}{',pinned' if pin else ''}]"
+            docs, tfs = checked_call(svc, kernels, ("topk",) if pin else ("plan", "topk"),
+                                     name, topk_fns(batch, engine, pin), lat, warm)
             require(docs.shape == tfs.shape == (len(batch), TOPK_K) and docs.dtype == np.int32)
             codes = plan["engine"] if engine == "auto" else [ENGINE_CODES[engine]] * len(batch)
             exact["topk"] += check_topk(docs, tfs, lo, hi, codes, da, pdl, max_df, TOPK_K)
@@ -742,9 +945,8 @@ def phase_topk_tfidf(dev, kernels):
                   for q in range(len(batch))]
         for conj in (False, True):
             name = f"tfidf[{'and' if conj else 'or'}]"
-            (docs, scores), delta = call(name, svc.tfidf_arrays, tf_queries[bi], k=TOPK_K,
-                                         conjunctive=conj, max_terms=4, max_buf=TFIDF_MAX_BUF)
-            require(delta == (1, 0, 0, 0, 1), (name, "launches", delta))
+            docs, scores = checked_call(svc, kernels, ("tfidf",), name,
+                                        tfidf_fns(tf_queries[bi], conj), lat, warm)
             require(docs.shape == scores.shape == (len(batch), TOPK_K)
                     and scores.dtype == np.float32 and np.isfinite(scores).all())
             eq, w = check_tfidf(docs, scores, ranges, da, d, pdl, conj, TOPK_K)
@@ -752,24 +954,28 @@ def phase_topk_tfidf(dev, kernels):
             worst_ulp = max(worst_ulp, w)
     launches = {"backward_search": bs.launches, "pdl_gather": kernels[4].launches}
     require(all(v > 0 for v in launches.values()), launches)
-    # where a batch's time goes: device busy time against the host clock
-    for name, fn in (
-        ("topk[pdl]", lambda: svc.topk_arrays(batches[-1], k=TOPK_K, engine="pdl",
-                                              max_buf=MAX_BUF)),
-        ("tfidf[or]", lambda: svc.tfidf_arrays(tf_queries[-1], k=TOPK_K,
-                                               max_buf=TFIDF_MAX_BUF)),
-    ):
-        prof = profile_calls(fn, 1)
-        top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:3]
-        log(f"[topk] {name} profile, last batch: wall {prof['wall_ms']:.2f} ms, device "
-            f"{prof['device_ms']} ms, {prof['kernels_per_call']:.0f} device activities; top "
-            + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top))
-    log(f"[topk] {len(batches)} batches of 32, launches {launches}; rows held exactly: "
+    require(all(n > 0 for n in warm.values()), ("an endpoint made no warm call", warm))
+    log(f"[topk] {len(batches)} batches of 32, launches {launches}; warm calls (replays "
+        f"only) {warm}; rows held exactly: "
         f"topk {exact['topk']} of {5 * len(pats)}, tfidf {exact['tfidf']} of "
         f"{2 * len(pats)} queries; largest tf-idf score distance {worst_ulp} ulp")
     log(f"[topk] engine mix per batch (auto): {mix}")
-    log("[topk] host seconds per batch: "
+    log("[topk] host seconds per batch, first pass (a capture where the bucket or its "
+        "window was new): "
         + "; ".join(f"{k} " + " ".join(f"{x:.4f}" for x in v) for k, v in lat.items()))
+    log_programs(svc, "topk")
+    calls = {}
+    for bi, batch in enumerate(batches):
+        for engine, pin in topk_cases:
+            calls.setdefault(f"topk[{engine}{',pinned' if pin else ''}]", []).append(
+                topk_fns(batch, engine, pin))
+        for conj in (False, True):
+            calls.setdefault(f"tfidf[{'and' if conj else 'or'}]", []).append(
+                tfidf_fns(tf_queries[bi], conj))
+    graph_against_eager(svc, kernels, calls, "topk")
+    # where a batch's time goes: device busy time against the host clock
+    profile_graph_and_eager("topk", "topk[pdl]", *topk_fns(batches[-1], "pdl", False), kernels)
+    profile_graph_and_eager("topk", "tfidf[or]", *tfidf_fns(tf_queries[-1], False), kernels)
     term_ranges = [(torch.from_numpy(tp["lo"]).to(dev), torch.from_numpy(tp["hi"]).to(dev))
                    for tp in term_plans]
     plan_ranges = [(torch.from_numpy(pl["lo"]).to(dev), torch.from_numpy(pl["hi"]).to(dev))
@@ -841,7 +1047,7 @@ def phase_large(dev, bs, il):
     from repro_torch.data.collections import (
         generate, paperlike_collections, random_substring_patterns, pad_patterns,
     )
-    from repro_torch.serve.planner import plan_queries
+    from repro_torch.serve.planner import plan_knobs, plan_queries
 
     coll = generate(paperlike_collections(scale=LARGE_SCALE)["dna-p001"])
     log(f"[large] dna-p001 x{LARGE_SCALE}: n={coll.n} d={coll.d}")
@@ -871,11 +1077,12 @@ def phase_large(dev, bs, il):
     for i in range(0, len(pats), 128):
         p, ln = pad_patterns(pats[i:i + 128], 8)
         batches.append((torch.from_numpy(p).to(dev), torch.from_numpy(ln).to(dev)))
+    knobs = plan_knobs(4.0, "auto", dev)
     reset_counts((bs, il))
     t = time.perf_counter()
     results = []
     for p, ln in batches:
-        plan = plan_queries(csa, sada, p, ln, 4.0, -1)
+        plan = plan_queries(csa, sada, p, ln, *knobs)
         docs, cnt = ilcp_list_docs_da_planned(ilcp, data.da, plan.lo, plan.hi, MAX_DF)
         results.append((plan, docs, cnt))
     torch.cuda.synchronize()
@@ -2016,8 +2223,14 @@ def main() -> int:
     for r in records:
         r.update(l1_latency_ns=lat["l1_ns"], l2_latency_ns=lat["l2_ns"],
                  dram_latency_ns=lat["dram_ns"], launch_floor_ms=floor)
+        if r.get("latency_bound_ms") is not None:
+            # what a lone launch of the kernel could take at best: the empty
+            # kernel's time, then the slowest query's dependent reads
+            r["floor_plus_latency_ms"] = floor + r["latency_bound_ms"]
     log("[kernels] device ms (empty-kernel floor " + f"{floor:.5f}): " + ", ".join(
-        f"{r['name']} {r['device_ms']:.5f}" for r in records))
+        f"{r['name']} {r['device_ms']:.5f}"
+        + (f" (floor + latency bound {r['floor_plus_latency_ms']:.5f})"
+           if "floor_plus_latency_ms" in r else "") for r in records))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     del svc, full_batches, large, topk
     free_device_memory()

@@ -23,8 +23,9 @@ from repro_torch.core.sada import SadaCount, sada_count_batch
 
 
 def idf_weight(d: int, df):
-    """g(df) = lg(d / max(df, 1)) in float32."""
-    ratio = torch.tensor(float(d), dtype=torch.float32, device=df.device) \
+    """g(df) = lg(d / max(df, 1)) in float32.  ``d`` is filled on the
+    device: a captured program may not copy from the host."""
+    ratio = torch.full((), float(d), dtype=torch.float32, device=df.device) \
         / torch.clamp(df, min=1).to(torch.float32)
     return torch.log2(ratio)
 

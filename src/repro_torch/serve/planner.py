@@ -4,7 +4,9 @@
 One pass over a padded pattern batch computes (lo, hi) by backward search,
 df by Sadakane counting, occ = hi - lo, and a per-query engine code:
 Brute-L when occ/df is below the threshold, PDL otherwise (Section 6.2.2).
-The comparison is made in float32, as the reference makes it.
+The comparison is made in float32, as the reference makes it.  The
+threshold and the forced engine are device tensors the program reads (the
+reference traces both), so a captured program serves every engine.
 
 Engine codes are part of the serving ABI: 0 = empty range, 1 = Brute-L,
 2 = ILCP (Sada-I-D), 3 = PDL.
@@ -34,6 +36,13 @@ ENGINE_CODES = {
 }
 
 
+def plan_knobs(occ_df_threshold: float, engine: str, device):
+    """The planner's two device inputs: (threshold float32[], forced engine
+    code int32[]).  Filled on the device: no host-to-device copy."""
+    return (torch.full((), occ_df_threshold, dtype=torch.float32, device=device),
+            torch.full((), ENGINE_CODES[engine], dtype=IDX, device=device))
+
+
 @dataclasses.dataclass(frozen=True)
 class QueryPlan:
     """Per-query execution plan (all int32[B] tensors)."""
@@ -50,8 +59,8 @@ def plan_queries(
     sada: SadaCount,
     patterns: torch.Tensor,     # int32[B, max_m] padded patterns
     lengths: torch.Tensor,      # int32[B] true lengths (0 = padding row)
-    occ_df_threshold: float,
-    forced_engine: int,         # -1 = auto dispatch
+    occ_df_threshold: torch.Tensor,  # float32[]
+    forced_engine: torch.Tensor,     # int32[]: -1 = auto dispatch
 ) -> QueryPlan:
     """Ranges + df + occ + engine assignment.  Rows of length 0 and
     patterns with no occurrences get ``ENGINE_EMPTY``."""
@@ -60,13 +69,12 @@ def plan_queries(
     occ = hi - lo
     df = sada_count_batch(sada, lo, hi)
 
-    thresh = torch.tensor(occ_df_threshold, dtype=torch.float32, device=lo.device)
     auto = torch.where(
-        occ.to(torch.float32) < thresh * torch.clamp(df, min=1).to(torch.float32),
+        occ.to(torch.float32) < occ_df_threshold * torch.clamp(df, min=1).to(torch.float32),
         ENGINE_BRUTE,
         ENGINE_PDL,
     )
-    engine = auto if forced_engine < 0 else torch.full_like(lo, forced_engine)
+    engine = torch.where(forced_engine < 0, auto, forced_engine)
     engine = torch.where(occ > 0, engine, ENGINE_EMPTY).to(IDX)
     return QueryPlan(lo=lo, hi=hi, occ=occ, df=df, engine=engine)
 

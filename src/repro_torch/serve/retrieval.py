@@ -13,18 +13,31 @@ A query batch runs in three stages:
    assigned to them collapsed to empty ranges; the rows are selected by
    engine and sorted.  ``topk`` sends ILCP-assigned queries to the top-k
    PDL (ILCP has no frequencies); ``tfidf`` runs every term through it.
-3. **Shape buckets**: batches pad to powers of two and pattern lengths to
-   multiples of 8, as in the reference; the Brute-L window is sized per
-   bucket from the planner's occ statistics and only ever grows.
+3. **Shape-bucketed program cache**: batches pad to powers of two and
+   pattern lengths to multiples of 8, as in the reference, and ``plan``,
+   ``list_docs``, ``topk`` and ``tfidf`` each run as ONE program per
+   (kind, statics) bucket, keyed as the reference keys its AOT
+   executables.  On the card a program is a CUDA graph: its first call
+   runs the program once on a side stream (real launches), captures it
+   and replays it; every later call copies the padded batch into the
+   graph's static inputs and replays, so the thousands of small kernels of
+   the masked executors cost one launch from Python.  ``compile_counts``
+   tallies the captures per kind (on CPU tensors the program is the eager
+   function, cached and tallied the same way).  The threshold and the
+   engine are device inputs, so switching engine reuses the program.  The
+   Brute-L window is a static of the bucket, sized from a plan pass (the
+   cached ``plan`` program) and grow-only: each growth captures once more.
 
-Not in this port yet: CUDA-graph capture of the bucketed programs (and so
-``compile_counts``), fault hooks, ``engine="reference"``, ``count_ilcp``,
-sharding (``mesh``) and build-time validation.
+A capture or replay that fails raises; nothing falls back to eager
+execution on the card.  Not in this port yet: fault hooks,
+``engine="reference"``, ``count_ilcp``, sharding (``mesh``) and
+build-time validation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -39,13 +52,18 @@ from repro_torch.core.sada import SadaCount, build_sada
 from repro_torch.core.suffix import Collection, build_suffix_data
 from repro_torch.core.tfidf import term_ranges_batch, tfidf_topk_batch
 from repro_torch.data.collections import normalize_patterns, pad_patterns
+from repro_torch.kernels.backward_search import backward_search
+from repro_torch.kernels.ilcp_list import ilcp_list
+from repro_torch.kernels.pdl_gather import pdl_gather
+from repro_torch.kernels.rank import rank
+from repro_torch.kernels.rmq import rmq
 from repro_torch.serve.planner import (
     ENGINE_BRUTE,
-    ENGINE_CODES,
     ENGINE_EMPTY,
     ENGINE_ILCP,
     ENGINE_PDL,
     masked_ranges,
+    plan_knobs,
     plan_queries,
 )
 
@@ -129,6 +147,72 @@ def _tfidf_program(k, conjunctive, max_buf, csa, pdl_t, sada, patterns, lengths)
                             max_buf=max_buf)
 
 
+# ---------------------------------------------------------------------------
+# Programs: one per (kind, statics) bucket
+# ---------------------------------------------------------------------------
+
+#: the kernel wrappers whose ``launches`` a replay adds to
+COUNTED_KERNELS = (backward_search, ilcp_list, pdl_gather, rank, rmq)
+
+
+class Program:
+    """One endpoint program of a shape bucket, called with the padded
+    batch's device tensors (the index is bound into ``fn``).
+
+    On CUDA tensors the program is a captured CUDA graph with static input
+    tensors of its own and one private memory pool.  Construction runs
+    ``fn`` once on a side stream (its launches are real and counted), then
+    captures it; each call copies its arguments into the static inputs and
+    replays.  The wrappers count launches in Python, which a replay does
+    not run: the capture's own increments are undone, and each replay adds
+    the launches per kernel it recorded.  A call returns the static
+    outputs, which the next replay overwrites: read them first.  On CPU
+    tensors a call runs ``fn`` eagerly."""
+
+    def __init__(self, fn, args):
+        self.fn = fn
+        self.graph = None
+        #: launches per kernel of one replay (name -> count); seconds of
+        #: the capture; bytes of the graph's private pool
+        self.launches, self.capture_s, self.pool_bytes = {}, 0.0, 0
+        if args[0].is_cuda:
+            self._capture(args)
+
+    def _capture(self, args):
+        dev = args[0].device
+        self.inputs = tuple(a.clone() for a in args)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.fn(*self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = [k.launches for k in COUNTED_KERNELS]
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                reserved = torch.cuda.memory_reserved(dev)
+                self.outputs = self.fn(*self.inputs)
+        finally:
+            recorded = [k.launches - b for k, b in zip(COUNTED_KERNELS, before)]
+            for k, b in zip(COUNTED_KERNELS, before):
+                k.launches = b  # the capture launched nothing
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {k.__name__: n for k, n in zip(COUNTED_KERNELS, recorded) if n}
+        self.graph = graph
+
+    def __call__(self, *args):
+        if self.graph is None:
+            return self.fn(*args)
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        self.graph.replay()
+        for k in COUNTED_KERNELS:
+            k.launches += self.launches.get(k.__name__, 0)
+        return self.outputs
+
+
 @dataclasses.dataclass
 class RetrievalService:
     coll: Collection
@@ -141,6 +225,10 @@ class RetrievalService:
     occ_df_threshold: float = 4.0     # paper: brute wins when occ/df < ~4
     brute_window: int | None = None   # None = size per bucket from occ stats
     _brute_windows: dict = dataclasses.field(default_factory=dict, repr=False)
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: programs built per kind: captures on the card (one per bucket and
+    #: Brute-L window), cached eager programs on the CPU
+    compile_counts: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
     #: host-clock seconds of each build stage (suffix, csa, ilcp, pdl,
     #: pdl_topk, sada)
     build_seconds: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -192,6 +280,24 @@ class RetrievalService:
             build_seconds=seconds,
         )
 
+    # -- program cache -------------------------------------------------------
+
+    def _compiled(self, kind: str, statics: tuple, build_fn, args: tuple) -> Program:
+        """One program per (kind, statics) bucket, built (on the card:
+        captured) exactly once; every later batch that pads into the bucket
+        replays it."""
+        key = (kind, statics)
+        prog = self._cache.get(key)
+        if prog is None:
+            prog = Program(build_fn(), args)
+            self._cache[key] = prog
+            self.compile_counts[kind] = self.compile_counts.get(kind, 0) + 1
+        return prog
+
+    def compiled_programs(self) -> dict:
+        """The live program cache, keyed (kind, statics)."""
+        return dict(self._cache)
+
     # -- batching ------------------------------------------------------------
 
     def _pad_batch(self, patterns):
@@ -208,6 +314,27 @@ class RetrievalService:
         lns = np.zeros(Bb, np.int32)
         lns[:B] = lens
         return as_i32(out, self.device), as_i32(lns, self.device), B
+
+    def _pad_terms(self, queries, max_terms: int):
+        """Dense [Q_bucket, max_terms, m_bucket] term batch + lengths on the
+        device; at most ``max_terms`` terms of each query are used."""
+        queries = [
+            normalize_patterns(list(terms)[:max_terms], sigma=self.coll.sigma,
+                               max_len=MAX_PATTERN_LEN)
+            for terms in queries
+        ]
+        m = max((len(t) for terms in queries for t in terms), default=1)
+        Qb, mb = _bucket_batch(len(queries)), _bucket_len(max(m, 1))
+        pats = np.zeros((Qb, max_terms, mb), np.int32)
+        lens = np.zeros((Qb, max_terms), np.int32)
+        for qi, terms in enumerate(queries):
+            for ti, t in enumerate(terms):
+                pats[qi, ti, : len(t)] = t
+                lens[qi, ti] = len(t)
+        return as_i32(pats, self.device), as_i32(lens, self.device)
+
+    def _knobs(self, engine: str):
+        return plan_knobs(self.occ_df_threshold, engine, self.device)
 
     def _brute_window_for(self, kind: str, bucket_key: tuple, patterns,
                           engine: str, max_buf: int) -> int:
@@ -233,14 +360,23 @@ class RetrievalService:
         """Query plan for a pattern batch: host arrays (lo, hi, occ, df,
         engine), trimmed to the true batch size."""
         pats, lens, B = self._pad_batch(patterns)
-        plan = plan_queries(
-            self.csa, self.sada, pats, lens, self.occ_df_threshold,
-            ENGINE_CODES[engine],
+        args = (pats, lens, *self._knobs(engine))
+        prog = self._compiled(
+            "plan", (tuple(pats.shape),),
+            lambda: functools.partial(plan_queries, self.csa, self.sada), args,
         )
+        plan = prog(*args)
         return {
             name: getattr(plan, name)[:B].cpu().numpy()
             for name in ("lo", "hi", "occ", "df", "engine")
         }
+
+    def ranges(self, patterns):
+        """(lo, hi, normalized pattern lengths) per pattern, host arrays."""
+        p = self.plan(patterns)
+        norm = normalize_patterns(patterns, sigma=self.coll.sigma, max_len=MAX_PATTERN_LEN)
+        lens = np.asarray([len(x) for x in norm], np.int32)
+        return p["lo"], p["hi"], lens
 
     def count(self, patterns, engine: str = "auto"):
         """df per pattern (Sadakane counting)."""
@@ -256,10 +392,14 @@ class RetrievalService:
         win = self._brute_window_for(
             "list", (tuple(pats.shape), max_df, max_buf), patterns, engine, max_buf
         )
-        docs, cnt, _ = _list_program(
-            max_df, win, max_buf, self.csa, self.ilcp, self.pdl_list, self.da, self.sada,
-            pats, lens, self.occ_df_threshold, ENGINE_CODES[engine],
+        args = (pats, lens, *self._knobs(engine))
+        prog = self._compiled(
+            "list", (tuple(pats.shape), max_df, win, max_buf),
+            lambda: functools.partial(_list_program, max_df, win, max_buf, self.csa,
+                                      self.ilcp, self.pdl_list, self.da, self.sada),
+            args,
         )
+        docs, cnt, _ = prog(*args)
         return docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()
 
     def list_docs(self, patterns, max_df: int = 256, engine: str = "auto",
@@ -285,13 +425,18 @@ class RetrievalService:
             return np.zeros((0, k), np.int32), np.zeros((0, k), np.int32)
         self._require_topk_index()
         pats, lens, B = self._pad_batch(patterns)
+        max_df = self._topk_max_df(max_buf)
         win = self._brute_window_for(
             "topk", (tuple(pats.shape), k, max_buf), patterns, engine, max_buf
         )
-        docs, tfs, _ = _topk_program(
-            k, self._topk_max_df(max_buf), win, max_buf, self.csa, self.pdl_topk,
-            self.sada, pats, lens, self.occ_df_threshold, ENGINE_CODES[engine],
+        args = (pats, lens, *self._knobs(engine))
+        prog = self._compiled(
+            "topk", (tuple(pats.shape), k, max_df, win, max_buf),
+            lambda: functools.partial(_topk_program, k, max_df, win, max_buf, self.csa,
+                                      self.pdl_topk, self.sada),
+            args,
         )
+        docs, tfs, _ = prog(*args)
         return docs[:B].cpu().numpy(), tfs[:B].cpu().numpy()
 
     def topk(self, patterns, k: int = 10, engine: str = "auto", max_buf: int = 4096):
@@ -309,23 +454,14 @@ class RetrievalService:
         if Q == 0:
             return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
         self._require_topk_index()
-        queries = [
-            normalize_patterns(list(terms)[:max_terms], sigma=self.coll.sigma,
-                               max_len=MAX_PATTERN_LEN)
-            for terms in queries
-        ]
-        m = max((len(t) for terms in queries for t in terms), default=1)
-        Qb, mb = _bucket_batch(Q), _bucket_len(max(m, 1))
-        pats = np.zeros((Qb, max_terms, mb), np.int32)
-        lens = np.zeros((Qb, max_terms), np.int32)
-        for qi, terms in enumerate(queries):
-            for ti, t in enumerate(terms):
-                pats[qi, ti, : len(t)] = t
-                lens[qi, ti] = len(t)
-        docs, scores = _tfidf_program(
-            k, conjunctive, max_buf, self.csa, self.pdl_topk, self.sada,
-            as_i32(pats, self.device), as_i32(lens, self.device),
+        args = self._pad_terms(queries, max_terms)
+        prog = self._compiled(
+            "tfidf", (tuple(args[0].shape), k, conjunctive, max_buf),
+            lambda: functools.partial(_tfidf_program, k, conjunctive, max_buf, self.csa,
+                                      self.pdl_topk, self.sada),
+            args,
         )
+        docs, scores = prog(*args)
         return docs[:Q].cpu().numpy(), scores[:Q].cpu().numpy()
 
     def tfidf(self, queries, k: int = 10, conjunctive: bool = False,

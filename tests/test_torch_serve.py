@@ -148,7 +148,10 @@ def test_brute_window_grows_like_the_reference(services):
     jsvc, ports, pats = services
     svc = tret.RetrievalService(**{f.name: getattr(ports["built"], f.name)
                                    for f in dataclasses.fields(tret.RetrievalService)
-                                   if not f.name.startswith("_")})
+                                   if f.init and not f.name.startswith("_")})
+    # the rebuilt service has a program cache and a tally of its own
+    assert svc.compile_counts == {} and svc.compiled_programs() == {}
+    assert svc.compile_counts is not ports["built"].compile_counts
     ref = JService(coll=jsvc.coll, csa=jsvc.csa, ilcp=jsvc.ilcp, pdl_list=jsvc.pdl_list,
                    pdl_topk=jsvc.pdl_topk, sada=jsvc.sada, da=jsvc.da)
     # the brute-assigned patterns with the smallest occ first, then the whole
