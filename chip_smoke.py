@@ -72,6 +72,29 @@ Phases (any failure exits non-zero; nothing is caught):
    of 256 leaves the longest climb, the chain's links and the list sizes,
    per expansion phase (four chunks' members) the longest member's
    expansion; its slowest query's cover is printed.
+4b. The serving runtime on the services of phases 2 and 2b (no new
+   build): ``ServeRuntime`` with the serving CLI's settings (batches of 32,
+   k = 10, 0.5 s deadlines), 256 requests per mode (``list`` and ``count``
+   on phase 2's service, ``topk`` and ``tfidf`` on phase 2b's) drawn from
+   the occ/df workload, after two warm passes over the same batches.  Clean
+   traffic: every answer ``full`` and equal to the direct endpoint call,
+   no degradation, retry, failure, short circuit or deadline miss, and
+   each batch exactly one replay's launches of its programs.  The same
+   requests under seeded ``executor_fail:0.2, executor_poison:0.2,
+   slow_list, compile_error``, then each rung forced once per mode (the
+   full path failing every attempt, with and without the floor): every
+   request answered, no ``POISON``, each degraded answer flagged
+   ``cause:path``, the reference rung equal to the full path, the floor
+   equal to the endpoint with the floor's arguments.  ``engine="reference"``
+   (``list_docs`` auto/brute/ilcp/pdl, ``count``, ``topk``, ``tfidf``) on a
+   batch of 32 bit-identical to the graph programs, with its launches (1
+   backward search per range pass, 1 ILCP listing or PDL gather per query
+   that takes one) and time per batch.  Validation: both builds'
+   ``build_seconds["validate"]``, a flipped wavelet word and a flipped DA
+   entry rejected.  Then ``python -m repro_torch.launch.serve`` twice as
+   subprocesses: clean ``--mode topk`` (no degradation, no retry) and
+   ``--mode list --inject executor_fail:0.2,slow_list`` (every query
+   served); both runs' steady p50/p99 lines are printed.
 5. LM serving: llama3.2-3b at full width and depth (28 x 3,072, 3.6B
    parameters, bf16, seeded random weights), ``attention_impl="flash"``.
    (a) 4 prompts of 2,048 tokens: one ``forward_prefill`` into a cache of
@@ -980,7 +1003,341 @@ def phase_topk_tfidf(dev, kernels):
                    for tp in term_plans]
     plan_ranges = [(torch.from_numpy(pl["lo"]).to(dev), torch.from_numpy(pl["hi"]).to(dev))
                    for pl in plans]
-    return launches, {"svc": svc, "ranges": plan_ranges, "term_ranges": term_ranges}
+    return launches, {"svc": svc, "ranges": plan_ranges, "term_ranges": term_ranges,
+                      "batches": batches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the serving runtime, the reference engine, validation, the CLI
+# ---------------------------------------------------------------------------
+
+RUNTIME_QUERIES = 256   # requests per mode, as the serving CLI's default
+RUNTIME_BATCH = 32
+RUNTIME_DEADLINE_S = 0.5  # the serving CLI's default deadline
+#: the endpoint programs one batch of each runtime mode runs
+RUNTIME_KINDS = {"list": ("plan", "list"), "count": ("plan",), "topk": ("plan", "topk"),
+                 "tfidf": ("tfidf",)}
+RUNTIME_FAULTS = "executor_fail:0.2,executor_poison:0.2,slow_list,compile_error"
+#: arguments the CLI runs take besides their mode (a CPU rehearsal adds
+#: ``--device cpu``)
+CLI_EXTRA_ARGS = ()
+
+
+def runtime_batches(pats, mode, rng):
+    """The CLI's traffic: batches of 32 drawn from the occ/df workload, a
+    tf-idf query being the drawn pattern and a second one."""
+    out = []
+    for _ in range(RUNTIME_QUERIES // RUNTIME_BATCH):
+        idx = rng.integers(0, len(pats), RUNTIME_BATCH)
+        if mode == "tfidf":
+            out.append([(mode, [pats[i], pats[int(rng.integers(0, len(pats)))]]) for i in idx])
+        else:
+            out.append([(mode, pats[i]) for i in idx])
+    return out
+
+
+def direct_answers(svc, cfg, mode, payloads, floor=False):
+    """What the runtime's full (or floor) rung must answer for a batch: the
+    service's endpoint called directly with the rung's own arguments."""
+    k = cfg.floor_k if floor else cfg.k
+    engine = "brute" if floor else "auto"
+    if mode == "list":
+        max_df = cfg.floor_max_df if floor else cfg.max_df
+        docs, cnt = svc.list_docs_arrays(payloads, max_df=max_df, engine=engine,
+                                         max_buf=cfg.max_buf)
+        return [docs[i, :cnt[i]].tolist() for i in range(len(payloads))]
+    if mode == "count":
+        return [int(x) for x in svc.count(payloads)]
+    if mode == "topk":
+        docs, tfs = svc.topk_arrays(payloads, k=k, engine=engine, max_buf=cfg.max_buf)
+        return [[(int(d), int(t)) for d, t in zip(docs[i], tfs[i]) if d >= 0]
+                for i in range(len(payloads))]
+    docs, scores = svc.tfidf_arrays(payloads, k=k, conjunctive=cfg.tfidf_conjunctive,
+                                    max_buf=cfg.max_buf)
+    return [[(int(d), float(x)) for d, x in zip(docs[i], scores[i]) if d >= 0]
+            for i in range(len(payloads))]
+
+
+def answer_ids(mode, result):
+    """Every integer of an answer that must be a document id (or a count)."""
+    if mode == "count":
+        return [result]
+    return [x[0] for x in result] if mode in ("topk", "tfidf") else list(result)
+
+
+def serve_counted(rt, svc, kernels, mode, reqs):
+    """One serve call; each batch it ran must launch one replay of each
+    program of the mode (no capture, no other kernel).  Returns (answers,
+    s)."""
+    before = [k.launches for k in kernels]
+    tally, nb = dict(svc.compile_counts), rt.metrics.batches
+    t = time.perf_counter()
+    answers = rt.serve(reqs)
+    dt = time.perf_counter() - t
+    nb = rt.metrics.batches - nb
+    want = tuple(nb * sum(REPLAY_LAUNCHES[kind].get(k.__name__, 0)
+                          for kind in RUNTIME_KINDS[mode]) for k in kernels)
+    delta = tuple(k.launches - b for k, b in zip(kernels, before))
+    require(delta == want, ("runtime", mode, "launches", delta, "want", want))
+    require(svc.compile_counts == tally, ("runtime", mode, "captured in the steady run"))
+    return answers, dt
+
+
+def runtime_traffic(services, batches, kernels):
+    """Clean traffic through ``ServeRuntime`` in every mode, then the same
+    requests under injected faults, then each degradation rung forced once
+    per mode.  Returns the clean run's launches."""
+    from repro_torch.serve import faults
+    from repro_torch.serve.runtime import RuntimeConfig, ServeRuntime
+
+    clean, launches = {}, {}
+    reset_counts(kernels)  # the runtime path's run starts here (warm passes included)
+    for mode, svc in services.items():
+        cfg = RuntimeConfig(max_batch=RUNTIME_BATCH, k=TOPK_K,
+                            max_df=min(256, svc.coll.d + 1),
+                            default_deadline_s=RUNTIME_DEADLINE_S)
+        rt = ServeRuntime(svc, cfg)
+        for _ in range(2):  # the CLI's two warm passes, over every batch of the run
+            for reqs in batches[mode]:
+                rt.serve(reqs, deadline_s=1e9)
+        lat, direct_s, clean[mode] = [], [], []
+        for reqs in batches[mode]:
+            answers, dt = serve_counted(rt, svc, kernels, mode, reqs)
+            lat.append(dt)
+            with uncounted(kernels):
+                t = time.perf_counter()
+                want = direct_answers(svc, cfg, mode, [p for _, p in reqs])
+                direct_s.append(time.perf_counter() - t)
+            require(all(a.path == "full" and not a.degraded and a.retries == 0
+                        and not a.deadline_missed for a in answers), ("runtime", mode))
+            require([a.result for a in answers] == want,
+                    ("runtime", mode, "answer differs from the direct endpoint call"))
+            clean[mode].append(want)
+        m = rt.metrics
+        require(m.answered == 3 * RUNTIME_QUERIES and m.degraded == 0 and m.retries == 0
+                and m.failures == 0 and m.short_circuits == 0 and m.deadline_misses == 0,
+                ("runtime", mode, m.as_dict()))
+        ms, dms = np.asarray(lat) * 1e3, np.asarray(direct_s) * 1e3
+        log(f"[runtime] {mode} clean: {RUNTIME_QUERIES} queries, batch {RUNTIME_BATCH}: "
+            f"steady p50 {np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} ms "
+            f"({RUNTIME_QUERIES / ms.sum() * 1e3:.0f} q/s); direct endpoint call p50 "
+            f"{np.percentile(dms, 50):.3f} ms p99 {np.percentile(dms, 99):.3f} ms; runtime "
+            f"overhead at p50 {np.percentile(ms, 50) - np.percentile(dms, 50):.3f} ms; "
+            f"metrics {m.as_dict()}")
+    launches = {k.__name__: k.launches for k in kernels}
+    require(launches["backward_search"] > 0 and launches["pdl_gather"] > 0, launches)
+
+    # injected faults over the same requests: every request answered, no
+    # POISON, reasons "cause:path", every rung's answers what it must be
+    specs = faults.parse_fault_specs(RUNTIME_FAULTS)
+    with uncounted(kernels):
+        for mode, svc in services.items():
+            cfg = RuntimeConfig(max_batch=RUNTIME_BATCH, k=TOPK_K,
+                                max_df=min(256, svc.coll.d + 1),
+                            default_deadline_s=RUNTIME_DEADLINE_S)
+            rt = ServeRuntime(svc, cfg)
+            served, paths = [], {}
+            t = time.perf_counter()
+            with faults.inject(*specs) as inj:
+                for reqs in batches[mode]:
+                    served.append(rt.serve(reqs))
+            seconds = time.perf_counter() - t
+            for bi, (reqs, answers) in enumerate(zip(batches[mode], served)):
+                check_rungs(svc, cfg, mode, reqs, answers, clean[mode][bi])
+                for a in answers:
+                    paths[a.path] = paths.get(a.path, 0) + 1
+            m = rt.metrics
+            require(m.answered == RUNTIME_QUERIES, (mode, m.as_dict()))
+            log(f"[runtime] {mode} injected ({RUNTIME_FAULTS}): {seconds:.2f} s, answers by "
+                f"path {paths}, {len(inj.fired)} faults fired, retries {m.retries}, "
+                f"breaker trips {m.breaker_trips}, deadline misses {m.deadline_misses}, "
+                f"reasons {dict(m.degrade_reasons)}")
+            # each rung forced once: the full path fails every attempt, then
+            # the floor runs (limit) or fails too (no limit)
+            site = "plan" if mode == "count" else f"executor:{mode}"
+            forced = {}
+            for rung, limit in (("floor", cfg.max_retries + 1), ("reference", None)):
+                rt = ServeRuntime(svc, cfg)
+                with faults.inject(faults.FaultSpec(site, "error", rate=1.0, limit=limit)):
+                    answers = rt.serve(batches[mode][0])
+                require({a.path for a in answers} == {rung}, (mode, rung, answers[0]))
+                check_rungs(svc, cfg, mode, batches[mode][0], answers, clean[mode][0])
+                forced[rung] = rt.metrics.retries
+            log(f"[runtime] {mode} forced rungs: floor and reference each answered a batch "
+                f"as they must (retries {forced})")
+    return launches
+
+
+def check_rungs(svc, cfg, mode, reqs, answers, full):
+    """A serve call's answers (the runtime may cut the call into smaller
+    batches): complete, POISON-free, each degraded one flagged
+    ``cause:path``; the full and reference rungs' answers equal to the full
+    path's, the floor's to the endpoint called with the floor's arguments."""
+    from repro_torch.serve.faults import POISON
+
+    require(len(answers) == len(reqs) and all(a.path != "empty" for a in answers),
+            (mode, [a.path for a in answers]))
+    floor = None
+    for i, a in enumerate(answers):
+        require(int(POISON) not in answer_ids(mode, a.result), (mode, "POISON answered"))
+        if a.degraded:
+            cause, _, path = (a.degrade_reason or "").partition(":")
+            require(path == a.path and cause in ("retries_exhausted", "breaker_open"),
+                    (mode, a.degrade_reason, a.path))
+        if a.path == "floor":
+            if floor is None:
+                floor = direct_answers(svc, cfg, mode, [p for _, p in reqs], floor=True)
+            require(a.result == floor[i], (mode, "floor answer differs from the floor's call"))
+        else:
+            require(a.result == full[i], (mode, a.path, "answer differs from the full path's"))
+
+
+def reference_engine(full_svc, topk_svc, full_batch, tf_batch, kernels):
+    """``engine="reference"`` on the card against the graph programs on a
+    batch of 32, with its launches: 1 backward search per ``_ranges_dfs``,
+    1 ILCP listing per ILCP query, 1 PDL gather per PDL query (tf-idf: one
+    gather for the batch).  Returns the launches."""
+    from repro_torch.serve.planner import ENGINE_BRUTE, ENGINE_EMPTY, ENGINE_PDL
+
+    max_df = min(MAX_DF, full_svc.coll.d + 1)
+    names = [k.__name__ for k in kernels]
+    times = {}
+
+    def run(label, fn, graph_fn, want):
+        before = [k.launches for k in kernels]
+        t = time.perf_counter()
+        got = fn()
+        times[label] = time.perf_counter() - t
+        delta = {n: k.launches - b for n, k, b in zip(names, kernels, before)}
+        require({n: v for n, v in delta.items() if v} == {n: v for n, v in want.items() if v},
+                (label, "launches", delta, "want", want))
+        with uncounted(kernels):
+            require(got == graph_fn(), (label, "differs from the graph program"))
+
+    def engine_counts(plan):
+        """(queries with a non-empty range, those the auto plan sends to PDL)."""
+        return (int((plan["engine"] != ENGINE_EMPTY).sum()),
+                int((plan["engine"] == ENGINE_PDL).sum()))
+
+    tbatch = [p for p, _ in tf_batch]
+    with uncounted(kernels):
+        plan = full_svc.plan(full_batch)
+        nonempty, auto_pdl = engine_counts(plan)
+        t_nonempty, t_auto_pdl = engine_counts(topk_svc.plan(tbatch))
+    mix = {name: int((plan["engine"] == code).sum())
+           for name, code in (("brute", ENGINE_BRUTE), ("pdl", ENGINE_PDL))}
+    reset_counts(kernels)  # the reference engine's run starts here
+    svc = full_svc
+    for sub in ("auto", "brute", "ilcp", "pdl"):
+        eng = "reference" if sub == "auto" else f"reference:{sub}"
+        want = {"backward_search": 1, "ilcp_list": nonempty if sub == "ilcp" else 0,
+                "pdl_gather": {"auto": auto_pdl, "pdl": nonempty}.get(sub, 0)}
+        run(f"list_docs[{eng}]",
+            lambda e=eng: svc.list_docs(full_batch, max_df=max_df, engine=e, max_buf=MAX_BUF),
+            lambda s=sub: svc.list_docs(full_batch, max_df=max_df, engine=s, max_buf=MAX_BUF),
+            want)
+    run("count[reference]", lambda: svc.count(full_batch, engine="reference").tolist(),
+        lambda: svc.count(full_batch).tolist(), {"backward_search": 1})
+    for eng, n_pdl in (("reference", t_auto_pdl), ("reference:pdl", t_nonempty)):
+        run(f"topk[{eng}]",
+            lambda e=eng: topk_svc.topk(tbatch, k=TOPK_K, engine=e, max_buf=MAX_BUF),
+            lambda e=eng: topk_svc.topk(tbatch, k=TOPK_K, engine=e.partition(":")[2] or "auto",
+                                        max_buf=MAX_BUF),
+            {"backward_search": 1, "pdl_gather": n_pdl})
+    queries = [list(q) for q in tf_batch]
+    for conj in (False, True):
+        run(f"tfidf[reference,{'and' if conj else 'or'}]",
+            lambda c=conj: topk_svc.tfidf(queries, k=TOPK_K, conjunctive=c,
+                                          max_buf=TFIDF_MAX_BUF, engine="reference"),
+            lambda c=conj: topk_svc.tfidf(queries, k=TOPK_K, conjunctive=c,
+                                          max_buf=TFIDF_MAX_BUF),
+            {"backward_search": len(queries), "pdl_gather": 1})
+    launches = {k.__name__: k.launches for k in kernels}
+    log(f"[reference] engine='reference' on a batch of 32 (auto mix {mix}), bit-identical to "
+        f"the graph programs; seconds per batch: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()) + f"; launches {launches}")
+    return launches
+
+
+def validation_checks(full_svc, topk_svc):
+    """Both builds validated (build(validate=True)); a flipped wavelet word
+    and a flipped DA entry must raise ``IndexIntegrityError``."""
+    import dataclasses
+
+    from repro_torch.errors import IndexIntegrityError
+    from repro_torch.serve.validate import validate_csa, verify_fingerprints
+
+    for label, svc in (("full", full_svc), ("topk", topk_svc)):
+        require(sorted(svc.fingerprints) == sorted(
+            ["csa", "ilcp", "pdl_list", "sada", "da"]
+            + (["pdl_topk"] if svc.pdl_topk is not None else [])), svc.fingerprints)
+        log(f"[validate] {label} (n = {svc.coll.n}): build(validate=True) "
+            f"{svc.build_seconds['validate']:.3f} s; fingerprints {svc.fingerprints}")
+    csa = full_svc.csa
+    words = csa.wm.words.clone()
+    words[0, 0] ^= 1
+    bad = dataclasses.replace(csa, wm=dataclasses.replace(csa.wm, words=words))
+    try:
+        validate_csa(bad)
+        require(False, "a flipped wavelet-matrix word passed validation")
+    except IndexIntegrityError as e:
+        log(f"[validate] flipped wavelet word: IndexIntegrityError({e})")
+    da = full_svc.da.clone()
+    da[0] = (da[0] + 1) % full_svc.coll.d
+    try:
+        verify_fingerprints(dataclasses.replace(full_svc, da=da), full_svc.fingerprints)
+        require(False, "a flipped DA entry passed the fingerprint check")
+    except IndexIntegrityError as e:
+        log(f"[validate] flipped DA entry: IndexIntegrityError({e})")
+
+
+def cli_runs():
+    """``python -m repro_torch.launch.serve`` twice: clean ``--mode topk``
+    (no degradation, no retry) and ``--mode list`` under injected faults
+    (exit 0, every query served)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = (("topk", ["--mode", "topk"]),
+            ("list", ["--mode", "list", "--inject", "executor_fail:0.2,slow_list"]))
+    for label, args in runs:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args, *CLI_EXTRA_ARGS]
+        t = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=600)
+        seconds = time.perf_counter() - t
+        lines = out.stdout.splitlines()
+        require(out.returncode == 0, (cmd, out.returncode, out.stderr[-2000:]))
+        steady = next(x for x in lines if "steady p50" in x)
+        resil = next(x for x in lines if x.startswith("resilience:"))
+        queries = int(steady.split(": ", 1)[1].split(" queries")[0])
+        require(queries >= RUNTIME_QUERIES and steady.startswith(f"{label}: "), steady)
+        if "--inject" not in args:
+            require("degraded_fraction=0.000" in resil and "retries=0 " in resil, resil)
+        log(f"[cli] {' '.join(args)}: {seconds:.1f} s; {lines[0]}")
+        log(f"[cli]   {steady}")
+        log(f"[cli]   {resil}")
+
+
+def phase_runtime(full_svc, full_batches, topk, kernels):
+    """Phase 4b on the services of phases 2 and 2b (no new build)."""
+    rng = np.random.default_rng(0)
+    full_pats = [p for b in full_batches for p in b]
+    topk_pats = [p for b in topk["batches"] for p in b]
+    services = {"list": full_svc, "count": full_svc, "topk": topk["svc"],
+                "tfidf": topk["svc"]}
+    batches = {mode: runtime_batches(full_pats if mode in ("list", "count") else topk_pats,
+                                     mode, rng) for mode in services}
+    t0 = time.perf_counter()
+    runtime = runtime_traffic(services, batches, kernels)
+    log(f"[runtime] traffic {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ref = reference_engine(full_svc, topk["svc"], full_batches[0],
+                           [p for _, p in batches["tfidf"][0]], kernels)
+    log(f"[reference] {time.perf_counter() - t0:.1f} s")
+    validation_checks(full_svc, topk["svc"])
+    t0 = time.perf_counter()
+    cli_runs()
+    log(f"[cli] {time.perf_counter() - t0:.1f} s")
+    return runtime, ref
 
 
 def phase_primitives(large, kernels):
@@ -2232,6 +2589,10 @@ def main() -> int:
         + (f" (floor + latency bound {r['floor_plus_latency_ms']:.5f})"
            if "floor_plus_latency_ms" in r else "") for r in records))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["runtime"], paths["reference_engine"] = phase_runtime(
+        svc, full_batches, topk, (backward_search, ilcp_list, pdl_gather, rank, rmq))
+    log(f"[runtime] phase {time.perf_counter() - t0:.1f} s")
     del svc, full_batches, large, topk
     free_device_memory()
     t0 = time.perf_counter()

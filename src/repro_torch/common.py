@@ -58,6 +58,15 @@ class TensorDataclass:
                 changes[f.name] = v.to(device)
         return dataclasses.replace(self, **changes)
 
+    @property
+    def device(self) -> torch.device:
+        """The device of the first tensor field (all fields share one)."""
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, (torch.Tensor, TensorDataclass)):
+                return v.device
+        raise ValueError(f"{type(self).__name__} has no tensor field")
+
 
 # ---------------------------------------------------------------------------
 # Small math helpers (host-side, used at build time)
@@ -115,6 +124,12 @@ def as_i32(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device or x.device, dtype=IDX)
     return torch.as_tensor(np.asarray(x, dtype=np.int32), device=device)
+
+
+def batch_of_one(x, device) -> torch.Tensor:
+    """int32[1] on ``device`` from a Python int or a one-element tensor:
+    the batch a single-query function hands its batch counterpart."""
+    return as_i32(x, device).reshape(1)
 
 
 def u32(words: torch.Tensor) -> torch.Tensor:

@@ -108,6 +108,11 @@ def csa_search_planned(csa: CSA, patterns, lengths):
     )
 
 
+#: the reference's per-query search over a batch (``csa_search_batch``)
+#: gives the same integers: here it is the kernel-routed search itself
+csa_search_batch = csa_search_planned
+
+
 def csa_search_pairs(csa: CSA, patterns, lengths):
     """The same ranges by the reference's pair descent over the wavelet
     matrix (``wm_rank_pair_batch``): a CPU cross-check of the kernel's

@@ -18,13 +18,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import IDX, TensorDataclass, ceil_log2, elias_fano_bits
+from repro_torch.common import IDX, TensorDataclass, batch_of_one, ceil_log2, elias_fano_bits
 from repro_torch.core.suffix import SuffixData
 from repro_torch.kernels.ilcp_list import ilcp_list, ilcp_list_plain, runs_of
 from repro_torch.kernels.rmq import rmq
 from repro_torch.succinct.bitvector import SparseBitvector, sparse_from_positions
 from repro_torch.succinct.rmq import SparseTableRMQ, rmq_build
-from repro_torch.succinct.wavelet import WaveletMatrix, wm_build
+from repro_torch.succinct.wavelet import WaveletMatrix, wm_build, wm_rank_pair_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +106,16 @@ def ilcp_list_docs_da_planned(index: ILCPIndex, da, lo, hi, max_df: int):
                      lo.contiguous(), hi.contiguous(), d=index.d, max_df=max_df)
 
 
+def ilcp_list_docs_da(index: ILCPIndex, da, lo, hi, max_df: int):
+    """Sada-I-D for one range (ints or one-element tensors): (docs
+    int32[max_df] padded -1, in discovery order; count), the listing
+    kernel's wrapper over a batch of one."""
+    dev = da.device
+    docs, cnt = ilcp_list_docs_da_planned(index, da, batch_of_one(lo, dev),
+                                          batch_of_one(hi, dev), max_df)
+    return docs[0], cnt[0]
+
+
 def ilcp_list_docs_da_batch(index: ILCPIndex, da, lo, hi, max_df: int):
     """Sada-I-D over a range batch, kernel-routed the reference's way
     (``repro.core.ilcp.ilcp_list_docs_da_batch(use_rmq_kernel=True)``): the
@@ -131,3 +141,42 @@ def ilcp_list_docs_da_batch(index: ILCPIndex, da, lo, hi, max_df: int):
         runs_of(index.run_starts, lo), runs_of(index.run_starts, hi - 1),
         d=index.d, max_df=max_df, rmq_fn=rmq_fn,
     )
+
+
+# ---------------------------------------------------------------------------
+# Document counting (Fig 3)
+# ---------------------------------------------------------------------------
+
+
+def ilcp_count_docs_batch(index: ILCPIndex, lo, hi, m):
+    """df = |{k in [lo, hi) : ILCP[k] < m}| per query (Lemma 1; m is the
+    pattern length), over int32[B] tensors.  The reference's per-value loop
+    (``ilcp_count_docs``) runs for all values v < max_b min(m_b,
+    max_value + 1) at once, masked to each query's own bound: per value,
+    the runs of value v inside the query's runs count their lengths
+    through the value-sorted cumulative lengths; the first and last run
+    are then clipped to the range.  Reads the batch's largest bound on the
+    host."""
+    lo_run = index.L.rank1(lo + 1) - 1
+    hi_run = index.L.rank1(torch.maximum(hi - 1, lo) + 1) - 1
+    vmax = torch.clamp(m, max=index.max_value + 1)
+    nv = int(vmax.max()) if vmax.numel() else 0
+    B = lo.shape[0]
+    v = torch.arange(nv, dtype=IDX, device=lo.device).expand(B, nv)
+    a, b = wm_rank_pair_batch(index.wm, v, lo_run[:, None].expand(B, nv),
+                              (hi_run + 1)[:, None].expand(B, nv))
+    off = index.value_run_offset[v]
+    per_value = index.clens[off + b] - index.clens[off + a]
+    total = torch.where(v < vmax[:, None], per_value, 0).sum(1, dtype=IDX)
+    # corrections: clip the first/last run to the query range
+    total = total - torch.where(index.vilcp[lo_run] < m, lo - index.run_starts[lo_run], 0)
+    total = total - torch.where(index.vilcp[hi_run] < m, index.run_starts[hi_run + 1] - hi, 0)
+    return torch.where(lo >= hi, 0, total).to(IDX)
+
+
+def ilcp_count_docs(index: ILCPIndex, lo, hi, m):
+    """df of one range (ints or one-element tensors) for pattern length
+    ``m``: ``ilcp_count_docs_batch`` over a batch of one."""
+    dev = index.device
+    return ilcp_count_docs_batch(index, batch_of_one(lo, dev), batch_of_one(hi, dev),
+                                 batch_of_one(m, dev))[0]

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common import BIG, IDX, lexsort_rows
+from repro_torch.common import BIG, IDX, batch_of_one, lexsort_rows
 from repro_torch.core.csa import CSA, csa_doc_of, csa_lookup
 
 
@@ -68,3 +68,21 @@ def brute_topk_batch(docs, counts, freqs, k: int):
     out_tf[:, :kk] = torch.gather(freqs, 1, top)
     ok = torch.arange(k, device=dev)[None, :] < torch.clamp(counts, max=k)[:, None]
     return torch.where(ok, out_docs, -1).to(IDX), torch.where(ok, out_tf, 0).to(IDX)
+
+
+def brute_list_csa(csa: CSA, lo, hi, max_occ: int, max_df: int | None = None):
+    """Brute-L for one range (ints or one-element tensors): (docs[max_df],
+    count, freqs[max_df]), ``brute_list_csa_batch`` over a batch of one."""
+    max_df = max_df or max_occ
+    dev = csa.device
+    docs, count, freqs = brute_list_csa_batch(csa, batch_of_one(lo, dev),
+                                              batch_of_one(hi, dev), max_occ, max_df)
+    return docs[0], count[0], freqs[0]
+
+
+def brute_topk(docs, count, freqs, k: int):
+    """Top-k of one ``brute_list_csa`` row by (tf desc, id asc):
+    (docs int32[k] padded -1, tf int32[k])."""
+    top_docs, top_tf = brute_topk_batch(docs[None], batch_of_one(count, docs.device),
+                                        freqs[None], k)
+    return top_docs[0], top_tf[0]

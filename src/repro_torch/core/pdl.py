@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.common import (
-    BIG, IDX, TensorDataclass, as_i32, ceil_log2, elias_fano_bits, lexsort_rows,
+    BIG, IDX, TensorDataclass, as_i32, batch_of_one, ceil_log2, elias_fano_bits,
+    lexsort_rows,
 )
 from repro_torch.core.csa import CSA
 from repro_torch.core.listing import _distinct_from_window
@@ -369,3 +370,37 @@ def pdl_topk_batch(index: PDLIndex, csa: CSA, lo, hi, k: int, max_buf: int = 409
     ok = torch.arange(k, device=lo.device)[None, :] < torch.clamp(nseg, max=k)[:, None]
     return (torch.where(ok, torch.gather(dkey, 1, top), -1).to(IDX),
             torch.where(ok, -torch.gather(negtf, 1, top), 0).to(IDX))
+
+
+# Single-query forms (the reference's per-query engine): the batch
+# functions over a batch of one, one gather launch each on the card.
+
+
+def pdl_list_docs(index: PDLIndex, csa: CSA, lo, hi, max_df: int, max_buf: int = 4096,
+                  max_cover: int = 1024):
+    """Distinct documents of DA[lo, hi) for one range: (docs int32[max_df]
+    ascending, -1 padded; count)."""
+    dev = csa.device
+    docs, cnt = pdl_list_docs_batch(index, csa, batch_of_one(lo, dev), batch_of_one(hi, dev),
+                                    max_df, max_buf, max_cover)
+    return docs[0], cnt[0]
+
+
+def pdl_doc_freqs(index: PDLIndex, csa: CSA, lo, hi, max_buf: int = 4096,
+                  max_cover: int = 1024):
+    """(document, tf) pairs of one range: (docs int32[max_buf] ascending,
+    padded with INT32_MAX; tf int32[max_buf]; ndocs)."""
+    dev = csa.device
+    docs, tf, nseg = pdl_doc_freqs_batch(index, csa, batch_of_one(lo, dev),
+                                         batch_of_one(hi, dev), max_buf, max_cover)
+    return docs[0], tf[0], nseg[0]
+
+
+def pdl_topk(index: PDLIndex, csa: CSA, lo, hi, k: int, max_buf: int = 4096,
+             max_cover: int = 1024):
+    """Top-k documents of one range by (tf desc, id asc): (docs int32[k]
+    padded -1, tf int32[k])."""
+    dev = csa.device
+    docs, tf = pdl_topk_batch(index, csa, batch_of_one(lo, dev), batch_of_one(hi, dev),
+                              k, max_buf, max_cover)
+    return docs[0], tf[0]

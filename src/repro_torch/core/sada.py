@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import IDX, TensorDataclass
+from repro_torch.common import IDX, TensorDataclass, batch_of_one
 from repro_torch.core.suffix import SuffixData
 from repro_torch.succinct.bitvector import (
     PlainBitvector,
@@ -86,3 +86,10 @@ def sada_count_batch(s: SadaCount, lo, hi):
     b = hi - 1
     dup = (s.hp.select1(b) - b) - (s.hp.select1(a) - a)
     return torch.where(hi > lo, (hi - lo) - dup, 0).to(IDX)
+
+
+def sada_count(s: SadaCount, lo, hi):
+    """df for one locus range [lo, hi) (ints or one-element tensors):
+    ``sada_count_batch`` over a batch of one, as a 0-d int32 tensor."""
+    dev = s.device
+    return sada_count_batch(s, batch_of_one(lo, dev), batch_of_one(hi, dev))[0]

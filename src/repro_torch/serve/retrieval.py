@@ -29,9 +29,20 @@ A query batch runs in three stages:
    cached ``plan`` program) and grow-only: each growth captures once more.
 
 A capture or replay that fails raises; nothing falls back to eager
-execution on the card.  Not in this port yet: fault hooks,
-``engine="reference"``, ``count_ilcp``, sharding (``mesh``) and
-build-time validation.
+execution on the card.  The fault sites of ``repro_torch.serve.faults``
+sit where the reference's do, outside every program: ``plan`` before the
+plan program, ``compile:<kind>`` on a cache miss before the program is
+built or captured, ``executor:<kind>`` after the Brute-L window pass, and
+the poison hook on the host arrays.
+
+The reference's per-query loop survives as ``engine="reference"`` (or
+``"reference:<engine>"`` to force a sub-engine), the runtime's last
+degradation rung and the parity oracle of the batched path: eager, per
+query, on the service's device, through the same kernel wrappers (one
+backward search per batch, one listing or gather launch per query), with
+no program and no fault hook.  ``build`` validates the index by default
+(``repro_torch.serve.validate``) and stores its fingerprints.  Not in
+this port yet: sharding (``mesh``).
 """
 
 from __future__ import annotations
@@ -44,11 +55,29 @@ import numpy as np
 import torch
 
 from repro_torch.common import BIG, IDX, as_i32, resolve_device
-from repro_torch.core.csa import CSA, build_csa
-from repro_torch.core.ilcp import ILCPIndex, build_ilcp, ilcp_list_docs_da_planned
-from repro_torch.core.listing import brute_list_csa_batch, brute_topk_batch
-from repro_torch.core.pdl import PDLIndex, build_pdl, pdl_list_docs_batch, pdl_topk_batch
-from repro_torch.core.sada import SadaCount, build_sada
+from repro_torch.core.csa import CSA, build_csa, csa_search_batch
+from repro_torch.core.ilcp import (
+    ILCPIndex,
+    build_ilcp,
+    ilcp_count_docs_batch,
+    ilcp_list_docs_da,
+    ilcp_list_docs_da_planned,
+)
+from repro_torch.core.listing import (
+    brute_list_csa,
+    brute_list_csa_batch,
+    brute_topk,
+    brute_topk_batch,
+)
+from repro_torch.core.pdl import (
+    PDLIndex,
+    build_pdl,
+    pdl_list_docs,
+    pdl_list_docs_batch,
+    pdl_topk,
+    pdl_topk_batch,
+)
+from repro_torch.core.sada import SadaCount, build_sada, sada_count_batch
 from repro_torch.core.suffix import Collection, build_suffix_data
 from repro_torch.core.tfidf import term_ranges_batch, tfidf_topk_batch
 from repro_torch.data.collections import normalize_patterns, pad_patterns
@@ -57,6 +86,7 @@ from repro_torch.kernels.ilcp_list import ilcp_list
 from repro_torch.kernels.pdl_gather import pdl_gather
 from repro_torch.kernels.rank import rank
 from repro_torch.kernels.rmq import rmq
+from repro_torch.serve import faults
 from repro_torch.serve.planner import (
     ENGINE_BRUTE,
     ENGINE_EMPTY,
@@ -66,6 +96,7 @@ from repro_torch.serve.planner import (
     plan_knobs,
     plan_queries,
 )
+from repro_torch.serve.validate import validate_service
 
 # ---------------------------------------------------------------------------
 # Shape buckets
@@ -88,6 +119,11 @@ BRUTE_WINDOW_FLOOR = 32
 
 #: largest servable pattern length; longer patterns normalize to empty
 MAX_PATTERN_LEN = 4096
+
+
+def _sub_engine(engine: str) -> str:
+    """The sub-engine of ``"reference"`` / ``"reference:<engine>"``."""
+    return engine.split(":", 1)[1] if ":" in engine else "auto"
 
 
 def _pow2_ceil(x: int) -> int:
@@ -230,8 +266,12 @@ class RetrievalService:
     #: Brute-L window), cached eager programs on the CPU
     compile_counts: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
     #: host-clock seconds of each build stage (suffix, csa, ilcp, pdl,
-    #: pdl_topk, sada)
+    #: pdl_topk, sada, validate)
     build_seconds: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: per-structure CRC32s recorded by build-time validation
+    #: (``repro_torch.serve.validate``); a load path compares them with
+    #: ``verify_fingerprints``
+    fingerprints: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -244,7 +284,7 @@ class RetrievalService:
         cls, coll: Collection, block_size: int = 64, beta: float = 16.0,
         sada_variant: str = "sparse", sample_rate: int = 16,
         brute_window: int | None = None, topk_index: bool = True,
-        device="cuda",
+        validate: bool = True, device="cuda",
     ):
         """Build the index stack on ``device`` (the card unless the caller
         asks for the CPU).  Queries go through the kernel wrappers, which
@@ -253,7 +293,10 @@ class RetrievalService:
         ``topk_index=False`` skips the top-k PDL, and with it ``topk`` and
         ``tfidf``: with ``beta=None`` it stores every internal node's list,
         about d entries per node on a repetitive collection, and its host
-        build grows faster than n (PERF.md, section 5)."""
+        build grows faster than n (PERF.md, section 5).  ``validate=True``
+        checks every structure's invariants and stores the fingerprints
+        (``repro_torch.serve.validate``): a corrupted index raises
+        ``IndexIntegrityError`` here, before it can serve."""
         dev = resolve_device(device)
         seconds = {}
 
@@ -266,7 +309,7 @@ class RetrievalService:
             return out
 
         data = timed("suffix", build_suffix_data, coll, dev)
-        return cls(
+        svc = cls(
             coll=coll,
             csa=timed("csa", build_csa, data, sample_rate=sample_rate),
             ilcp=timed("ilcp", build_ilcp, data),
@@ -279,6 +322,9 @@ class RetrievalService:
             brute_window=brute_window,
             build_seconds=seconds,
         )
+        if validate:
+            svc.fingerprints.update(timed("validate", validate_service, svc))
+        return svc
 
     # -- program cache -------------------------------------------------------
 
@@ -289,6 +335,7 @@ class RetrievalService:
         key = (kind, statics)
         prog = self._cache.get(key)
         if prog is None:
+            faults.fire(f"compile:{kind}")
             prog = Program(build_fn(), args)
             self._cache[key] = prog
             self.compile_counts[kind] = self.compile_counts.get(kind, 0) + 1
@@ -361,6 +408,7 @@ class RetrievalService:
         engine), trimmed to the true batch size."""
         pats, lens, B = self._pad_batch(patterns)
         args = (pats, lens, *self._knobs(engine))
+        faults.fire("plan")
         prog = self._compiled(
             "plan", (tuple(pats.shape),),
             lambda: functools.partial(plan_queries, self.csa, self.sada), args,
@@ -379,8 +427,20 @@ class RetrievalService:
         return p["lo"], p["hi"], lens
 
     def count(self, patterns, engine: str = "auto"):
-        """df per pattern (Sadakane counting)."""
+        """df per pattern (Sadakane counting).  ``engine="reference"``
+        computes the same counts through the per-query path, the
+        runtime's last-resort degradation."""
+        if engine.startswith("reference"):
+            return self._ranges_dfs(patterns)[2]
         return self.plan(patterns, engine)["df"]
+
+    def count_ilcp(self, patterns):
+        """df per pattern by ILCP counting (Fig 3), a cross-check of
+        ``count``."""
+        lo, hi, lens = self.ranges(patterns)
+        dev = self.device
+        return ilcp_count_docs_batch(self.ilcp, as_i32(lo, dev), as_i32(hi, dev),
+                                     as_i32(lens, dev)).cpu().numpy()
 
     def list_docs_arrays(self, patterns, max_df: int = 256, engine: str = "auto",
                          max_buf: int = 4096):
@@ -393,6 +453,7 @@ class RetrievalService:
             "list", (tuple(pats.shape), max_df, max_buf), patterns, engine, max_buf
         )
         args = (pats, lens, *self._knobs(engine))
+        faults.fire("executor:list")
         prog = self._compiled(
             "list", (tuple(pats.shape), max_df, win, max_buf),
             lambda: functools.partial(_list_program, max_df, win, max_buf, self.csa,
@@ -400,12 +461,16 @@ class RetrievalService:
             args,
         )
         docs, cnt, _ = prog(*args)
-        return docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()
+        return faults.poison("executor:list", (docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()))
 
     def list_docs(self, patterns, max_df: int = 256, engine: str = "auto",
                   max_buf: int = 4096):
         """Document listing with the paper's df/occ dispatch policy;
-        ``engine``: "auto" | "brute" | "ilcp" | "pdl"."""
+        ``engine``: "auto" | "brute" | "ilcp" | "pdl" run the batched
+        programs, "reference" (or "reference:<engine>") the per-query
+        loop."""
+        if engine.startswith("reference"):
+            return self._list_docs_reference(patterns, max_df, _sub_engine(engine), max_buf)
         docs, cnt = self.list_docs_arrays(patterns, max_df, engine, max_buf)
         return [docs[i, : cnt[i]].tolist() for i in range(len(cnt))]
 
@@ -430,6 +495,7 @@ class RetrievalService:
             "topk", (tuple(pats.shape), k, max_buf), patterns, engine, max_buf
         )
         args = (pats, lens, *self._knobs(engine))
+        faults.fire("executor:topk")
         prog = self._compiled(
             "topk", (tuple(pats.shape), k, max_df, win, max_buf),
             lambda: functools.partial(_topk_program, k, max_df, win, max_buf, self.csa,
@@ -437,10 +503,13 @@ class RetrievalService:
             args,
         )
         docs, tfs, _ = prog(*args)
-        return docs[:B].cpu().numpy(), tfs[:B].cpu().numpy()
+        return faults.poison("executor:topk", (docs[:B].cpu().numpy(), tfs[:B].cpu().numpy()))
 
     def topk(self, patterns, k: int = 10, engine: str = "auto", max_buf: int = 4096):
-        """Top-k documents by term frequency: per pattern, [(doc, tf), ...]."""
+        """Top-k documents by term frequency: per pattern, [(doc, tf), ...];
+        ``engine`` as for ``list_docs``."""
+        if engine.startswith("reference"):
+            return self._topk_reference(patterns, k, _sub_engine(engine), max_buf)
         docs, tfs = self.topk_arrays(patterns, k, engine, max_buf)
         return [[(int(d), int(t)) for d, t in zip(docs[i], tfs[i]) if d >= 0]
                 for i in range(docs.shape[0])]
@@ -455,6 +524,7 @@ class RetrievalService:
             return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
         self._require_topk_index()
         args = self._pad_terms(queries, max_terms)
+        faults.fire("executor:tfidf")
         prog = self._compiled(
             "tfidf", (tuple(args[0].shape), k, conjunctive, max_buf),
             lambda: functools.partial(_tfidf_program, k, conjunctive, max_buf, self.csa,
@@ -462,20 +532,110 @@ class RetrievalService:
             args,
         )
         docs, scores = prog(*args)
-        return docs[:Q].cpu().numpy(), scores[:Q].cpu().numpy()
+        return faults.poison("executor:tfidf",
+                             (docs[:Q].cpu().numpy(), scores[:Q].cpu().numpy()))
 
     def tfidf(self, queries, k: int = 10, conjunctive: bool = False,
-              max_terms: int = 4, max_buf: int = 2048):
-        """Ranked multi-term retrieval: per query, [(doc, score), ...]."""
+              max_terms: int = 4, max_buf: int = 2048, engine: str = "auto"):
+        """Ranked multi-term retrieval: per query, [(doc, score), ...];
+        ``engine="reference"`` takes each query's term ranges per query."""
+        if engine.startswith("reference"):
+            return self._tfidf_reference(queries, k, conjunctive, max_terms, max_buf)
         docs, scores = self.tfidf_arrays(queries, k, conjunctive, max_terms, max_buf)
         return [[(int(d), float(s)) for d, s in zip(docs[i], scores[i]) if d >= 0]
                 for i in range(docs.shape[0])]
 
+    # -- reference per-query path (parity oracle) ----------------------------
+
+    def _dispatch(self, occ: int, df: int, engine: str) -> str:
+        if engine != "auto":
+            return engine
+        return "brute" if occ < self.occ_df_threshold * max(df, 1) else "pdl"
+
+    def _ranges_dfs(self, patterns):
+        """(lo, hi, df) host arrays of a pattern list, through the same
+        input gate as the batched path: one backward-search launch."""
+        patterns = normalize_patterns(patterns, sigma=self.coll.sigma, max_len=MAX_PATTERN_LEN)
+        # at least one column, so a batch of empty patterns still searches
+        pats, lens = pad_patterns(patterns, max((len(p) for p in patterns), default=0) or 1)
+        pats, lens = as_i32(pats, self.device), as_i32(lens, self.device)
+        lo, hi = csa_search_batch(self.csa, pats, lens)
+        # as in the planner: zero-length patterns are empty, not the full range
+        hi = torch.where(lens > 0, hi, lo)
+        dfs = sada_count_batch(self.sada, lo, hi)
+        return lo.cpu().numpy(), hi.cpu().numpy(), dfs.cpu().numpy()
+
+    def _list_docs_reference(self, patterns, max_df, engine, max_buf):
+        if not len(patterns):
+            return []
+        lo, hi, dfs = self._ranges_dfs(patterns)
+        out = []
+        for qi in range(len(lo)):
+            a, b = int(lo[qi]), int(hi[qi])
+            if a >= b:
+                out.append([])
+                continue
+            eng = self._dispatch(b - a, int(dfs[qi]), engine)
+            if eng == "brute":
+                # window min(occ, max_buf) covers the positions the batched
+                # executor's window covers (validity-masked)
+                docs, cnt, _ = brute_list_csa(self.csa, a, b, min(b - a, max_buf), max_df)
+            elif eng == "ilcp":
+                docs, cnt = ilcp_list_docs_da(self.ilcp, self.da, a, b, max_df)
+            else:
+                docs, cnt = pdl_list_docs(self.pdl_list, self.csa, a, b, max_df,
+                                          max_buf=max_buf)
+            out.append(sorted(docs[: int(cnt)].tolist()))
+        return out
+
+    def _topk_reference(self, patterns, k, engine, max_buf):
+        if not len(patterns):
+            return []
+        self._require_topk_index()
+        lo, hi, dfs = self._ranges_dfs(patterns)
+        max_df = self._topk_max_df(max_buf)
+        out = []
+        for qi in range(len(lo)):
+            a, b = int(lo[qi]), int(hi[qi])
+            if a >= b:
+                out.append([])
+                continue
+            if self._dispatch(b - a, int(dfs[qi]), engine) == "brute":
+                docs, tfs = brute_topk(*brute_list_csa(self.csa, a, b, min(b - a, max_buf),
+                                                       max_df), k)
+            else:
+                docs, tfs = pdl_topk(self.pdl_topk, self.csa, a, b, k, max_buf=max_buf)
+            out.append([(int(d), int(t)) for d, t in zip(docs.tolist(), tfs.tolist())
+                        if d >= 0])
+        return out
+
+    def _tfidf_reference(self, queries, k, conjunctive, max_terms, max_buf):
+        Q = len(queries)
+        if Q == 0:
+            return []
+        self._require_topk_index()
+        ranges = np.zeros((Q, max_terms, 2), np.int32)
+        valid = np.zeros((Q, max_terms), bool)
+        for qi, terms in enumerate(queries):
+            if not len(terms):
+                continue
+            lo, hi, _ = self._ranges_dfs(list(terms)[:max_terms])
+            for ti in range(len(lo)):
+                ranges[qi, ti] = (lo[ti], hi[ti])
+                valid[qi, ti] = True
+        docs, scores = tfidf_topk_batch(
+            self.pdl_topk, self.csa, self.sada, as_i32(ranges, self.device),
+            torch.as_tensor(valid, device=self.device), k, conjunctive, max_buf=max_buf,
+        )
+        return [[(int(d), float(s)) for d, s in zip(docs[qi].tolist(), scores[qi].tolist())
+                 if d >= 0] for qi in range(Q)]
+
     # -- introspection --------------------------------------------------------
 
     def space_report(self) -> dict:
-        """Bits-per-character accounting in the paper's units (the top-k
-        PDL's entry only where the service has one)."""
+        """Bits-per-character accounting in the paper's units, keyed in the
+        reference's order (the top-k PDL's entry only where the service
+        has one)."""
         n = self.coll.n
         report = {
             "n": n,
@@ -484,10 +644,9 @@ class RetrievalService:
             "ilcp_listing_bpc": self.ilcp.modeled_bits_listing() / n,
             "ilcp_counting_bpc": self.ilcp.modeled_bits_counting() / n,
             "pdl_list_bpc": self.pdl_list.modeled_bits() / n,
-            "sada_bpc": self.sada.modeled_bits() / n,
-            "bwt_runs": self.csa.bwt_runs,
-            "ilcp_runs": self.ilcp.nruns,
         }
         if self.pdl_topk is not None:
             report["pdl_topk_bpc"] = self.pdl_topk.modeled_bits() / n
+        report.update(sada_bpc=self.sada.modeled_bits() / n, bwt_runs=self.csa.bwt_runs,
+                      ilcp_runs=self.ilcp.nruns)
         return report

@@ -135,6 +135,23 @@ def wm_access(wm: WaveletMatrix, i):
     return val
 
 
+def wm_count_less(wm: WaveletMatrix, lo, hi, m):
+    """Number of positions p in [lo, hi) with S[p] < m, elementwise over
+    equal-shape int32 tensors.  Both range ends ride one descent along m's
+    bit path: where m's bit is 1, the block of values with a 0 there (same
+    prefix, so all < m) is counted, and the descent goes right."""
+    acc = torch.zeros_like(lo)
+    p, q = lo, hi
+    for lvl in range(wm.levels):
+        bit = wm.bit_of(m, lvl)
+        p0 = p - wm.rank1_level(lvl, p)
+        q0 = q - wm.rank1_level(lvl, q)
+        acc = acc + torch.where(bit == 1, q0 - p0, 0)
+        p = torch.where(bit == 0, p0, wm.zcount[lvl] + (p - p0))
+        q = torch.where(bit == 0, q0, wm.zcount[lvl] + (q - q0))
+    return torch.where(m >= wm.sigma, hi - lo, acc).to(IDX)
+
+
 def wm_modeled_bits(wm: WaveletMatrix) -> int:
     """n*ceil(lg sigma) + o(...) — plain-bitvector levels."""
     per_level = wm.n + max(1, wm.n // 8)

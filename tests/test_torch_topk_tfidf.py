@@ -368,7 +368,7 @@ def test_empty_batches_and_missing_index(services):
 def test_topk_build_is_timed_and_optional(services):
     jsvc, ports, pats, _ = services
     assert set(ports["built"].build_seconds) == {"suffix", "csa", "ilcp", "pdl", "pdl_topk",
-                                                 "sada"}
+                                                 "sada", "validate"}
     coll = jsvc.coll
     bare = tret.RetrievalService.build(
         Collection(text=coll.text, doc_starts=coll.doc_starts, doc_ends=coll.doc_ends,
