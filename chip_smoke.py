@@ -9,9 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from ``src/repro_torch/csrc`` with nvcc for sm_90a (one
    nvcc per source, run together): the six TPU kernels' counterparts, flash
-   attention as two kernels (Hopper and SIMT routes), the PDL gather (the
-   port's own kernel) and a pointer-chase probe; ptxas's registers and
-   spills of the flash kernels.
+   attention as two kernels (Hopper and SIMT routes), the port's own PDL
+   gather, Sada-C and WT listing kernels and a pointer-chase probe; ptxas's
+   registers and spills of the flash kernels.
 2. Full path: ``RetrievalService`` built on the card for dna-p001 at
    scale 3.2 (n = 1,024,320, d = 320) without the top-k PDL; ``plan``,
    ``count`` and ``list_docs`` (engines auto, ilcp, brute, pdl) on batches
@@ -116,11 +116,32 @@ Phases (any failure exits non-zero; nothing is caught):
    against the plain version, and timed beside
    ``torch.nn.functional.embedding_bag`` as a yardstick.
 
+7. The paper's baselines (after phase 4b, on the indexes of phases 2 and 3;
+   no new service build, at most 60 s): C's sparse-table RMQ and the DA
+   wavelet matrix built on the card for phase 2's collection; Brute-D,
+   Sada-C-D and Sada-C-L (``sada_c_list``, on a stored DA and on the CSA
+   locate), Sada-I-D and Sada-I-L (``ilcp_list`` on both DA sources), WT
+   (``wt_list``) and ``wt_topk`` (k = 10) on phase 2's 128 patterns in
+   batches of 32 at ``max_df = d + 1`` (``doc_listing.py``'s setting), one
+   launch of each kernel per batch and call; every row held to the host
+   oracle (distinct DA[lo:hi], with frequencies for Brute-D and WT), also
+   on an edge batch at ``max_df = 4`` that truncates.  Each new kernel
+   against its plain version bit for bit on one batch of 32 and on masked
+   (0, 0) rows with (0, n), and against a host replay of its recursion;
+   ms, device ms, byte bound, latency bound (the slowest query's dependent
+   read rounds, replayed on the host, at the probe's L2 latency), floor +
+   latency and plain ms; each structure's modeled bits per char.  Then
+   Sada's five encodings (``plain``, ``rle``, ``sparse``,
+   ``sparse_sparse``, ``filter_plain``) built on the card for phase 2's
+   index and phase 3's (n = 16,385,280): on the same ranges every df
+   equals the sparse variant's, the ILCP count and the oracle; bits per
+   char and count time per batch.
+
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
 
-Tolerances of the kernel checks: the five index kernels are bit-identical
-to their plain versions.  Flash attention in f32 within 2e-5 and embedding
+Tolerances of the kernel checks: the seven index kernels (nine
+instantiations) are bit-identical to their plain versions.  Flash attention in f32 within 2e-5 and embedding
 bag in f32 within 1e-6 (the reference's own kernel tests); in bf16 both
 within 2 bf16 ulps of the plain version (they compute in f32, the Hopper
 flash kernel with P split into two bf16 parts, and round once; ulps are
@@ -266,9 +287,10 @@ class Chain:
     L2 hit's: the path's latency bound is ``ns(lat)``."""
 
     def __init__(self, seen=frozenset()):
-        self.lines, self.seen, self.l2, self.l1 = set(), seen, 0, 0
+        self.lines, self.seen, self.l2, self.l1, self.reads = set(), seen, 0, 0, 0
 
     def read(self, *keys):
+        self.reads += len(keys)
         fresh = any(k not in self.lines and k not in self.seen for k in keys)
         self.lines.update(keys)
         self.l2 += fresh
@@ -752,7 +774,7 @@ def phase_full_path(dev, bs, il, pg):
     profile_graph_and_eager("full", f"list_docs[auto] {mix}", *per_batch[-1]["list_docs[auto]"],
                             kernels)
     log(f"[full] space report {svc.space_report()}")
-    return svc, batches, launches
+    return svc, batches, launches, data
 
 
 def host_topk(da, lo, hi, k):
@@ -1457,7 +1479,7 @@ def phase_large(dev, bs, il):
     log(f"[large] {len(pats)} patterns in {len(batches)} batches: {run_s:.3f} s, "
         f"launches {launches}")
     sa = data.sa.cpu().numpy().astype(np.int64)
-    large = {"csa": csa, "ilcp": ilcp, "da": data.da, "batches": batches,
+    large = {"csa": csa, "ilcp": ilcp, "da": data.da, "data": data, "batches": batches,
              "ranges": [(plan.lo, plan.hi) for plan, _, _ in results],
              "listed": [(docs, cnt) for _, docs, cnt in results], "pats": pats,
              "bwt": np.asarray(coll.text, np.int32)[(sa - 1) % coll.n]}
@@ -2535,6 +2557,513 @@ def phase_embedding_bag(dev, eb, rows=EMB_ROWS, dim=EMB_DIM, batches=EMB_BATCHES
     return launches, record
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the paper's baselines on phase 2's collection, Sada's encodings
+# ---------------------------------------------------------------------------
+
+BASELINE_K = 10          # wt_topk's k (the top-k path's)
+BASELINE_EDGE_DF = 4     # the edge batch's truncating max_df
+BASELINE_MAX_OCC = 8192  # doc_listing.py's cap on Brute-D's window
+
+
+class HostLocate:
+    """``rt::csa_locate_one`` then ``rt::csa_doc_of`` for one SA position,
+    replayed on the host with each dependent read a round of a ``Chain``:
+    per step the binary search over the sampled positions and the sampled
+    test, per LF step one round per wavelet level (word and prefix) and one
+    for the symbol's offsets; then the search again, the sample, and the
+    search over the document starts."""
+
+    def __init__(self, csa):
+        wm = csa.wm
+        self.words = wm.words.cpu().numpy().view(np.uint32)
+        self.prefix = wm.ones_prefix.cpu().numpy()
+        self.zcount = wm.zcount.cpu().numpy()
+        self.counts = csa.counts.cpu().numpy()
+        self.sym_starts = wm.sym_starts.cpu().numpy()
+        self.sampled = csa.sampled.pos.cpu().numpy()
+        self.samples = csa.samples.cpu().numpy()
+        self.doc_starts = csa.doc_bv.pos.cpu().numpy()
+        self.m, self.levels, self.rate = csa.sampled.m, wm.levels, csa.sample_rate
+
+    def __call__(self, chain, i):
+        j, steps = int(i), 0
+        for _ in range(self.rate):
+            k = min(chain.search("sampled", self.sampled, j), max(self.m - 1, 0))
+            chain.read(("sampled", k >> 5))
+            if self.m > 0 and self.sampled[k] == j:
+                break
+            pos, sym = j, 0
+            for lvl in range(self.levels):
+                w = pos >> 5
+                chain.read(("words", lvl, w >> 5), ("prefix", lvl, w >> 5))
+                word = int(self.words[lvl, w])
+                bit = (word >> (pos & 31)) & 1
+                r1 = int(self.prefix[lvl, w]) + bin(word & ((1 << (pos & 31)) - 1)).count("1")
+                pos = int(self.zcount[lvl]) + r1 if bit else pos - r1
+                sym = (sym << 1) | bit
+            chain.read(("counts", sym >> 5), ("sym_starts", sym >> 5))
+            j = int(self.counts[sym]) + pos - int(self.sym_starts[sym])
+            steps += 1
+        r = min(max(chain.search("sampled", self.sampled, j), 0), self.m - 1)
+        chain.read(("samples", r >> 5))
+        return chain.search("doc_starts", self.doc_starts, int(self.samples[r]) + steps + 1) - 1
+
+
+def host_stored_da(da):
+    """DA[i] from the stored array, one read on the chain."""
+    def get(chain, i):
+        chain.read(("da", int(i) >> 5))
+        return int(da[i])
+    return get
+
+
+def host_rmq(chain, table, values, a, b, name):
+    """``rt::rmq_leftmost`` over [a, b] on the host: the table's two
+    entries, then their values, one round each."""
+    levels = table.shape[0]
+    k = min(max(int(np.floor(np.log2(max(b - a + 1, 1)))), 0), levels - 1)
+    right = max(b - (1 << k) + 1, a)
+    chain.read((name, k, a >> 5), (name, k, right >> 5))
+    ia, ib = int(table[k, a]), int(table[k, right])
+    chain.read((name + ".values", ia >> 5), (name + ".values", ib >> 5))
+    return ib if (values[ib] < values[ia] or (values[ib] == values[ia] and ib < ia)) else ia
+
+
+def host_sada_c(values, table, get_doc, lo, hi, d, max_df):
+    """The Sada-C recursion per query in Python (the reference's
+    trajectory), with the kernel thread's dependent reads on one ``Chain``
+    per query (``get_doc(chain, k)``: a stored DA or the locate): (docs
+    rows, counts, pops, chains)."""
+    n = table.shape[1]
+    cap, max_pops = max_df + 4, 2 * max_df + 8
+    rows, cnts, pops_q, chains = [], [], [], []
+    for a0, b0 in zip(lo.tolist(), hi.tolist()):
+        stack, seen, out, pops, chain = [(a0, b0 - 1)], set(), [], 0, Chain()
+        chain.read(("lo", 0), ("hi", 0))
+        while stack and len(out) < max_df and pops < max_pops:
+            a, b = stack.pop()
+            pops += 1
+            if a > b or a0 >= b0:
+                continue
+            r = host_rmq(chain, table, values, min(max(min(a, b0 - 1), 0), n - 1),
+                         min(max(min(b, b0 - 1), 0), n - 1), "c")
+            g = get_doc(chain, r)
+            if g in seen:
+                continue
+            seen.add(g)
+            out.append(g)
+            if r + 1 <= b and len(stack) < cap:
+                stack.append((r + 1, b))
+            if a <= r - 1 and len(stack) < cap:
+                stack.append((a, r - 1))
+        rows.append(out + [-1] * (max_df - len(out)))
+        cnts.append(len(out))
+        pops_q.append(pops)
+        chains.append(chain)
+    return (np.asarray(rows, np.int32).reshape(len(cnts), max_df), np.asarray(cnts, np.int32),
+            pops_q, chains)
+
+
+def host_ilcp_warp(vilcp, table, run_starts, get_doc, lo, hi, d, max_df):
+    """The warp ILCP kernel per query in Python: the Fig-1 recursion with
+    each run's DA positions taken 32 at a time, as the warp takes them.
+    The query's ``Chain``: the root's run searches and RMQ, per valid pop
+    its run's bounds, per chunk the slowest lane's reads (each lane its own
+    chain over the lines the query read before; the lanes' lines join the
+    query's after the chunk).  (docs rows, counts, pops, chunks, chains)."""
+    rho = table.shape[1]
+    cap, max_pops = max_df + 4, 2 * max_df + 8
+    starts = run_starts[:rho]
+    rows, cnts, pops_q, chunks_q, chains = [], [], [], [], []
+    for a0, b0 in zip(lo.tolist(), hi.tolist()):
+        chain = Chain()
+        chain.read(("lo", 0), ("hi", 0))
+        lr = chain.search("run_starts", starts, a0, right=True) - 1
+        hr = chain.search("run_starts", starts, b0 - 1, right=True) - 1
+        if a0 < b0 and lr <= hr:
+            host_rmq(chain, table, vilcp, min(max(lr, 0), rho - 1), min(max(hr, 0), rho - 1),
+                     "table")
+        stack, seen, out, pops, chunks = [(lr, hr)], set(), [], 0, 0
+        while stack and len(out) < max_df and pops < max_pops:
+            a, b = stack.pop()
+            pops += 1
+            if a > b or a0 >= b0:
+                continue
+            a_, b_ = min(max(a, 0), rho - 1), min(max(b, 0), rho - 1)
+            r = host_rmq(Chain(), table, vilcp, a_, b_, "table")  # resolved at push time
+            chain.read(("run_starts", r >> 5), ("run_starts", (r + 1) >> 5))
+            k, j = max(a0, int(run_starts[r])), min(b0, int(run_starts[r + 1]))
+            stopped = False
+            while k < j and len(out) < max_df and not stopped:
+                nvalid = min(j - k, 32)
+                lanes = [Chain(seen=chain.lines) for _ in range(nvalid)]
+                g = [get_doc(lane, k + i) for i, lane in enumerate(lanes)]
+                worst = max(lanes, key=lambda c: (c.l2, c.l1))
+                chain.l2 += worst.l2
+                chain.l1 += worst.l1
+                for lane in lanes:
+                    chain.lines |= lane.lines
+                    chain.reads += lane.reads
+                chunks += 1
+                first = nvalid
+                for i, x in enumerate(g):
+                    if x in seen or x in g[:i]:
+                        first = i
+                        break
+                room = max_df - len(out)
+                emit = min(first, nvalid, room)
+                for x in g[:emit]:
+                    seen.add(x)
+                    out.append(x)
+                stopped = first < nvalid and first < room
+                k += emit
+            if stopped:
+                continue
+            if r + 1 <= b and len(stack) < cap:
+                stack.append((r + 1, b))
+            if a <= r - 1 and len(stack) < cap:
+                stack.append((a, r - 1))
+        rows.append(out + [-1] * (max_df - len(out)))
+        cnts.append(len(out))
+        pops_q.append(pops)
+        chunks_q.append(chunks)
+        chains.append(chain)
+    return (np.asarray(rows, np.int32).reshape(len(cnts), max_df), np.asarray(cnts, np.int32),
+            pops_q, chunks_q, chains)
+
+
+def host_wt(words, prefix, zcount, lo, hi, max_df):
+    """The WT DFS per query in Python, each internal node one round of the
+    query's ``Chain`` (both ends' word and prefix): (docs, freqs, counts,
+    pops, chains)."""
+    words = words.view(np.uint32)
+    levels = words.shape[0]
+
+    def rank1(lvl, pos):
+        w = pos >> 5
+        return int(prefix[lvl, w]) + bin(int(words[lvl, w]) & ((1 << (pos & 31)) - 1)).count("1")
+
+    docs, freqs, cnts, pops_q, chains = [], [], [], [], []
+    for a0, b0 in zip(lo.tolist(), hi.tolist()):
+        stack, out, tf, pops, chain = [(0, a0, b0, 0)], [], [], 0, Chain()
+        chain.read(("lo", 0), ("hi", 0))
+        while stack and len(out) < max_df:
+            lvl, a, b, val = stack.pop()
+            pops += 1
+            if a >= b:
+                continue
+            if lvl >= levels:
+                out.append(val)
+                tf.append(b - a)
+                continue
+            chain.read(*((arr, lvl, pos >> 10) for arr in ("words", "prefix") for pos in (a, b)),
+                       ("zcount", 0))
+            r1a, r1b, z = rank1(lvl, a), rank1(lvl, b), int(zcount[lvl])
+            if r1a < r1b:
+                stack.append((lvl + 1, z + r1a, z + r1b, (val << 1) | 1))
+            if a - r1a < b - r1b:
+                stack.append((lvl + 1, a - r1a, b - r1b, val << 1))
+        docs.append(out + [-1] * (max_df - len(out)))
+        freqs.append(tf + [0] * (max_df - len(tf)))
+        cnts.append(len(out))
+        pops_q.append(pops)
+        chains.append(chain)
+    return (np.asarray(docs, np.int32).reshape(len(cnts), max_df),
+            np.asarray(freqs, np.int32).reshape(len(cnts), max_df), np.asarray(cnts, np.int32),
+            pops_q, chains)
+
+
+def check_rows(docs, cnt, lo, hi, da, max_df, what, freqs=None, ascending=True):
+    """Each row against the host oracle: distinct DA[lo:hi] (ascending and
+    exact where sorted; a distinct subset otherwise, all of it when df fits),
+    with their frequencies where given."""
+    for r in range(len(cnt)):
+        vals, tf = np.unique(da[lo[r]:hi[r]], return_counts=True)
+        c = int(cnt[r])
+        require(c == min(len(vals), max_df), (what, r, "count", c, len(vals)))
+        require(np.all(docs[r, c:] == -1), (what, r, "padding"))
+        row = docs[r, :c]
+        if ascending:
+            require(np.array_equal(row, vals[:c]), (what, r, "rows"))
+        else:
+            require(len(set(row.tolist())) == c and set(row.tolist()) <= set(vals.tolist()),
+                    (what, r, "rows"))
+            if len(vals) <= max_df:
+                require(set(row.tolist()) == set(vals.tolist()), (what, r, "incomplete"))
+        if freqs is not None:
+            require(np.array_equal(freqs[r, :c], tf[:c]) and np.all(freqs[r, c:] == 0),
+                    (what, r, "freqs"))
+
+
+def sada_variant_checks(label, data, ranges, lens, da, ilcp):
+    """All five Sada encodings built on the card for one index: on the
+    same ranges each df equals the sparse variant's, the ILCP count and the
+    oracle; bits per char and count time per batch."""
+    from repro_torch.core.ilcp import ilcp_count_docs_batch
+    from repro_torch.core.sada import VARIANTS, build_sada, sada_count_batch
+
+    truth = np.concatenate([
+        np.asarray([len(np.unique(da[a:b])) for a, b in zip(lo.cpu().numpy(), hi.cpu().numpy())])
+        for lo, hi in ranges])
+    ilcp_df = torch.cat([ilcp_count_docs_batch(ilcp, lo, hi, m)
+                         for (lo, hi), m in zip(ranges, lens)]).cpu().numpy()
+    require(np.array_equal(ilcp_df, truth), (label, "ILCP count != oracle"))
+    out, dfs = {}, {}
+    for v in VARIANTS:
+        t = time.perf_counter()
+        s = build_sada(data, v)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        dfs[v] = torch.cat([sada_count_batch(s, lo, hi) for lo, hi in ranges]).cpu().numpy()
+        lo, hi = ranges[0]
+        out[v] = {"bits_per_char": s.modeled_bits() / data.n, "build_s": build_s,
+                  "count_ms_per_batch": cuda_time_ms(lambda s=s: sada_count_batch(s, lo, hi), 20),
+                  "batch": int(lo.shape[0])}
+        require(np.array_equal(dfs[v], truth), (label, v, "df != oracle"))
+        del s
+    require(all(np.array_equal(dfs[v], dfs["sparse"]) for v in VARIANTS))
+    log(f"[baselines] Sada encodings at n={data.n} ({label}, {len(truth)} ranges, df == sparse "
+        "== ILCP count == oracle): " + "; ".join(
+            f"{v} {o['bits_per_char']:.4f} bpc, build {o['build_s']:.3f} s, count "
+            f"{o['count_ms_per_batch']:.4f} ms/batch of {o['batch']}" for v, o in out.items()))
+    return out
+
+
+def phase_baselines(svc, data, full_batches, large, lat, kernels):
+    """Phase 7: Brute-D, Sada-C-D, Sada-C-L, Sada-I-D, Sada-I-L, WT and
+    ``wt_topk`` on phase 2's index and patterns, against the host oracle
+    and the kernels' plain versions; Sada's five encodings on the indexes
+    of phases 2 and 3."""
+    from repro_torch.core.csa import csa_search_planned
+    from repro_torch.core.ilcp import ilcp_list_docs_csa_batch, ilcp_list_docs_da_planned
+    from repro_torch.core.listing import (
+        brute_list_da_batch, sada_c_list_docs_csa_batch, sada_c_list_docs_da_batch,
+    )
+    from repro_torch.core.wtlist import (
+        build_da_wavelet, wt_list_docs_batch, wt_modeled_bits, wt_topk_batch,
+    )
+    from repro_torch.data.collections import pad_patterns
+    from repro_torch.kernels.ilcp_list import ilcp_list_plain, runs_of
+    from repro_torch.kernels.sada_c_list import sada_c_list_plain
+    from repro_torch.kernels.wt_list import wt_list_plain
+    from repro_torch.succinct.rmq import (
+        rmq_build, rmq_modeled_bits_succinct, rmq_modeled_bits_table,
+    )
+
+    sc, il, wt = kernels
+    dev = svc.da.device
+    csa, ilcp, da_t = svc.csa, svc.ilcp, svc.da
+    n, d = csa.n, csa.d
+    t = time.perf_counter()
+    rmq_c = rmq_build(data.c)
+    wm = build_da_wavelet(da_t, d)
+    torch.cuda.synchronize()
+    log(f"[baselines] C's RMQ ({rmq_c.levels} x {n}) and the DA wavelet ({wm.levels} levels) "
+        f"built on the card in {time.perf_counter() - t:.3f} s")
+    ranges, lens = [], []
+    for batch in full_batches:
+        p, ln = pad_patterns(batch, 8)
+        p, ln = torch.from_numpy(p).to(dev), torch.from_numpy(ln).to(dev)
+        lo, hi = csa_search_planned(csa, p, ln)
+        ranges.append((lo, hi))
+        lens.append(ln)
+    max_df = d + 1
+    occ = max(int((hi - lo).max()) for lo, hi in ranges)
+    max_occ = min(occ, BASELINE_MAX_OCC)
+    listers = {
+        "Brute-D": lambda lo, hi, md: brute_list_da_batch(da_t, lo, hi, max_occ, md),
+        "Sada-C-D": lambda lo, hi, md: sada_c_list_docs_da_batch(rmq_c, da_t, lo, hi, d, md),
+        "Sada-C-L": lambda lo, hi, md: sada_c_list_docs_csa_batch(rmq_c, csa, lo, hi, md),
+        "Sada-I-D": lambda lo, hi, md: ilcp_list_docs_da_planned(ilcp, da_t, lo, hi, md),
+        "Sada-I-L": lambda lo, hi, md: ilcp_list_docs_csa_batch(ilcp, csa, lo, hi, md),
+        "WT": lambda lo, hi, md: wt_list_docs_batch(wm, lo, hi, md),
+        "wt_topk": lambda lo, hi, md: wt_topk_batch(wm, lo, hi, BASELINE_K, md),
+    }
+    counters = {"sada_c_list": (sc, "launches"), "sada_c_list[csa]": (sc, "csa_launches"),
+                "ilcp_list": (il, "launches"), "ilcp_list[csa]": (il, "csa_launches"),
+                "wt_list": (wt, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)  # the main path's run starts here
+    outs = {name: [] for name in listers}
+    secs = {name: [] for name in listers}
+    for lo, hi in ranges:
+        for name, fn in listers.items():
+            t = time.perf_counter()
+            out = [x.cpu().numpy() for x in fn(lo, hi, max_df)]
+            secs[name].append(time.perf_counter() - t)
+            outs[name].append(out)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    B = len(ranges)
+    require(launches == {"sada_c_list": B, "sada_c_list[csa]": B, "ilcp_list": B,
+                         "ilcp_list[csa]": B, "wt_list": 2 * B}, launches)
+    log(f"[baselines] {sum(len(b) for b in full_batches)} patterns in {B} batches, max_df "
+        f"{max_df}, Brute-D window {max_occ} (largest occ {occ}); launches {launches}")
+    log("[baselines] host s per batch (first call, result on the host): " + "; ".join(
+        f"{k} " + " ".join(f"{x:.4f}" for x in v) for k, v in secs.items()))
+
+    # every row against the host oracle
+    da = da_t.cpu().numpy()
+    for b, (lo, hi) in enumerate(ranges):
+        lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+        docs, cnt, freqs = outs["Brute-D"][b]  # its window truncates at max_occ
+        check_rows(docs, cnt, lo, np.minimum(hi, lo + max_occ), da, max_df, "Brute-D", freqs)
+        for name in ("Sada-C-D", "Sada-C-L", "Sada-I-D", "Sada-I-L"):
+            check_rows(*outs[name][b], lo, hi, da, max_df, name, ascending=False)
+        docs, freqs, cnt = outs["WT"][b]
+        check_rows(docs, cnt, lo, hi, da, max_df, "WT", freqs)
+        for name, twin in (("Sada-C-L", "Sada-C-D"), ("Sada-I-L", "Sada-I-D")):
+            # one discovery order per recursion, whatever the DA source
+            require(all(np.array_equal(x, y) for x, y in zip(outs[name][b], outs[twin][b])),
+                    (name, "rows differ from", twin))
+        tdocs, ttf = outs["wt_topk"][b]
+        for r in range(len(lo)):
+            want_d, want_tf, _ = host_topk(da, lo[r], hi[r], BASELINE_K)
+            k = len(want_d)
+            require(np.array_equal(tdocs[r, :k], want_d) and np.array_equal(ttf[r, :k], want_tf)
+                    and np.all(tdocs[r, k:] == -1), ("wt_topk", b, r))
+    # the edge batch: a truncating max_df
+    lo, hi = ranges[0]
+    hlo, hhi = lo.cpu().numpy(), hi.cpu().numpy()
+    for name, fn in listers.items():
+        if name == "wt_topk":
+            continue
+        out = [x.cpu().numpy() for x in fn(lo, hi, BASELINE_EDGE_DF)]
+        if name == "WT":
+            check_rows(out[0], out[2], hlo, hhi, da, BASELINE_EDGE_DF, name, out[1])
+        elif name == "Brute-D":
+            check_rows(out[0], out[1], hlo, np.minimum(hhi, hlo + max_occ), da,
+                       BASELINE_EDGE_DF, name, out[2])
+        else:
+            check_rows(out[0], out[1], hlo, hhi, da, BASELINE_EDGE_DF, name, ascending=False)
+        require(np.any(out[-1 if name == "WT" else 1] == BASELINE_EDGE_DF), (name, "no truncation"))
+    log(f"[baselines] every row of the {B} batches and the max_df={BASELINE_EDGE_DF} edge batch "
+        "matches the host oracle")
+
+    # each kernel against its plain version on the card, bit for bit, on
+    # batch 0 with its last four rows masked (0, 0) twice, (0, n) and
+    # (n - 1, n): one batch of the main path's shape, whose plain run (a
+    # lockstep loop as long as its longest row) is timed too
+    lo = torch.cat([lo[:-4], torch.tensor([0, 0, 0, n - 1], dtype=torch.int32, device=dev)])
+    hi = torch.cat([hi[:-4], torch.tensor([0, n, 0, n], dtype=torch.int32, device=dev)])
+    hlo, hhi = lo.cpu().numpy(), hi.cpu().numpy()
+    table, values = rmq_c.table, rmq_c.values
+    il_args = (ilcp.vilcp, ilcp.rmq.table, ilcp.run_starts)
+    cases = {
+        "sada_c_list": (lambda lo, hi: sc(values, table, da_t, lo, hi, d=d, max_df=max_df),
+                        lambda lo, hi: sada_c_list_plain(values, table, da_t, lo, hi, d=d,
+                                                         max_df=max_df)),
+        "sada_c_list[csa]": (lambda lo, hi: sc(values, table, csa, lo, hi, d=d, max_df=max_df),
+                             lambda lo, hi: sada_c_list_plain(values, table, csa, lo, hi, d=d,
+                                                              max_df=max_df)),
+        "ilcp_list[csa]": (lambda lo, hi: il(*il_args, csa, lo, hi, d=d, max_df=max_df),
+                           lambda lo, hi: ilcp_list_plain(
+                               *il_args, csa, lo, hi, runs_of(ilcp.run_starts, lo),
+                               runs_of(ilcp.run_starts, hi - 1), d=d, max_df=max_df)),
+        "wt_list": (lambda lo, hi: wt(wm.words, wm.ones_prefix, wm.zcount, lo, hi,
+                                      max_df=max_df),
+                    lambda lo, hi: wt_list_plain(wm.words, wm.ones_prefix, wm.zcount, lo, hi,
+                                                 max_df=max_df)),
+    }
+    plain_ms, kout = {}, {}
+    for name, (kern, plain) in cases.items():
+        k = [x.cpu() for x in kern(lo, hi)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p = plain(lo, hi)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t) * 1e3
+        kout[name] = [x.numpy() for x in k]
+        mm = sum(int((x != y.cpu()).sum()) for x, y in zip(k, p))
+        log(f"[baselines] {name} on batch 0 with masked rows and (0, n): mismatches against "
+            f"the plain version {mm}; counts {kout[name][-1].tolist()}")
+        require(mm == 0, (name, "kernel != plain version"))
+
+    # times and bounds at the main path's shape (batch 0), from this run's
+    # work: bytes of every read the replay makes plus the outputs; latency,
+    # the slowest query's chain at the probe's L1 / L2 latencies (beside it
+    # every round at the L2 latency)
+    records = []
+    vals_h, table_h = values.cpu().numpy(), table.cpu().numpy()
+    locate = HostLocate(csa)
+    B0 = len(hlo)
+
+    def record(name, replaces, kfn, chains, out_words, shape):
+        ms = cuda_time_ms(kfn, 20)
+        dev_ms = queued_time_ms(kfn, 20)
+        reads = sum(c.reads for c in chains)
+        nbytes = (reads + out_words + 2 * B0) * 4
+        ops = 10 * reads
+        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
+        lat_ms, rounds = longest(chains, lat)
+        records.append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/retrieval_kernels.cu",
+            replaces=replaces, launches=None, max_abs_err=0, mismatches=0, ms=ms,
+            kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms[name], library_ms=None,
+            bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",
+            latency_chain=rounds, latency_bound_ms=lat_ms,
+            latency_all_l2_ms=max(c.l1 + c.l2 for c in chains) * lat["l2_ns"] * 1e-6,
+            shape=shape))
+
+    def same(name, host):
+        require(all(np.array_equal(x, y) for x, y in zip(host, kout[name])),
+                (name, "kernel != host replay of the recursion"))
+
+    hd, hc, pops, chains = host_sada_c(vals_h, table_h, host_stored_da(da), hlo, hhi, d, max_df)
+    same("sada_c_list", (hd, hc))
+    record("sada_c_list", "src/repro/core/listing.py:147 (XLA, sada_c_list_docs; no TPU kernel)",
+           lambda: cases["sada_c_list"][0](lo, hi), chains, B0 * (max_df + 1),
+           f"B={B0} max_df={max_df} d={d} n={n} pops={sum(pops)}")
+    hd, hc, pops, chains = host_sada_c(vals_h, table_h, locate, hlo, hhi, d, max_df)
+    same("sada_c_list[csa]", (hd, hc))
+    record("sada_c_list[csa]", "src/repro/core/listing.py:147 (XLA, sada_c_list_docs_csa; no "
+           "TPU kernel)", lambda: cases["sada_c_list[csa]"][0](lo, hi), chains,
+           B0 * (max_df + 1), f"B={B0} max_df={max_df} d={d} n={n} pops={sum(pops)} "
+           f"sample_rate={csa.sample_rate}")
+    hd, hc, pops, chunks, chains = host_ilcp_warp(
+        ilcp.vilcp.cpu().numpy(), ilcp.rmq.table.cpu().numpy(), ilcp.run_starts.cpu().numpy(),
+        locate, hlo, hhi, d, max_df)
+    same("ilcp_list[csa]", (hd, hc))
+    record("ilcp_list[csa]", "src/repro/core/ilcp.py:223 (XLA, ilcp_list_docs_csa; the Sada-I-D "
+           "instantiation replaces src/repro/kernels/ilcp_list.py:193)",
+           lambda: cases["ilcp_list[csa]"][0](lo, hi), chains, B0 * (max_df + 1),
+           f"B={B0} max_df={max_df} d={d} rho={ilcp.nruns} pops={sum(pops)} "
+           f"chunks={sum(chunks)}")
+    wd, wf, wc, pops, chains = host_wt(wm.words.cpu().numpy(), wm.ones_prefix.cpu().numpy(),
+                                       wm.zcount.cpu().numpy(), hlo, hhi, max_df)
+    same("wt_list", (wd, wf, wc))
+    require(all(p <= max(1, c * (wm.levels + 1)) for p, c in zip(pops, wc)), "WT pop bound")
+    record("wt_list", "src/repro/core/wtlist.py:27 (XLA, wt_list_docs; no TPU kernel)",
+           lambda: cases["wt_list"][0](lo, hi), chains, B0 * (2 * max_df + 1),
+           f"B={B0} max_df={max_df} levels={wm.levels} pops={sum(pops)}")
+    log("[baselines] kernels: " + "; ".join(
+        f"{r['name']} {r['ms']:.5f} ms, device {r['device_ms']:.5f}, bound {r['bound_ms']:.7f} "
+        f"({r['bound_by']}), latency bound {r['latency_bound_ms']:.5f} "
+        f"({r['latency_chain']}; all at L2 {r['latency_all_l2_ms']:.5f}), "
+        f"plain {r['plain_ms']:.2f}" for r in records))
+
+    # each structure's modeled bits per char
+    bpc = {
+        "DA (Brute-D, Sada-C-D, Sada-I-D)": n * ceil_log2(d) / n,
+        "CSA (RLCSA model)": csa.modeled_bits_rlcsa() / n,
+        "RMQ over C, succinct (Sada-C)": rmq_modeled_bits_succinct(n) / n,
+        "RMQ over C, sparse table as stored": rmq_modeled_bits_table(rmq_c) / n,
+        "ILCP listing (Sada-I)": ilcp.modeled_bits_listing() / n,
+        "WT over DA": wt_modeled_bits(wm) / n,
+    }
+    log("[baselines] modeled bits per char: " + "; ".join(f"{k} {v:.4f}" for k, v in bpc.items()))
+
+    # Sada's five encodings on phase 2's and phase 3's indexes
+    sada = {"full": sada_variant_checks("phase 2", data, ranges, lens, da, ilcp)}
+    del rmq_c, wm
+    sada["large"] = sada_variant_checks(
+        "phase 3", large["data"], large["ranges"], [ln for _, ln in large["batches"]],
+        large["da"].cpu().numpy(), large["ilcp"])
+    records[0].update(modeled_bits_per_char=bpc, sada_encodings=sada,
+                      host_s_per_batch={k: v for k, v in secs.items()})
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU",
@@ -2551,6 +3080,8 @@ def main() -> int:
     from repro_torch.kernels.pdl_gather import pdl_gather
     from repro_torch.kernels.rank import rank
     from repro_torch.kernels.rmq import rmq
+    from repro_torch.kernels.sada_c_list import sada_c_list
+    from repro_torch.kernels.wt_list import wt_list
 
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2558,8 +3089,8 @@ def main() -> int:
     build = phase_build()
     paths = {}
     t0 = time.perf_counter()
-    svc, full_batches, paths["list"] = phase_full_path(dev, backward_search, ilcp_list,
-                                                       pdl_gather)
+    svc, full_batches, paths["list"], full_data = phase_full_path(dev, backward_search,
+                                                                  ilcp_list, pdl_gather)
     log(f"[full] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths["topk_tfidf"], topk = phase_topk_tfidf(
@@ -2593,7 +3124,25 @@ def main() -> int:
     paths["runtime"], paths["reference_engine"] = phase_runtime(
         svc, full_batches, topk, (backward_search, ilcp_list, pdl_gather, rank, rmq))
     log(f"[runtime] phase {time.perf_counter() - t0:.1f} s")
-    del svc, full_batches, large, topk
+    t0 = time.perf_counter()
+    paths["baselines"], base_records = phase_baselines(
+        svc, full_data, full_batches, large, lat, (sada_c_list, ilcp_list, wt_list))
+    for r in base_records:
+        r.update(l1_latency_ns=lat["l1_ns"], l2_latency_ns=lat["l2_ns"],
+                 dram_latency_ns=lat["dram_ns"], launch_floor_ms=floor,
+                 floor_plus_latency_ms=floor + r["latency_bound_ms"])
+    records += base_records
+    log("[baselines] floor + latency bound ms: " + ", ".join(
+        f"{r['name']} {r['floor_plus_latency_ms']:.5f} (device {r['device_ms']:.5f})"
+        for r in base_records))
+    il_rec = next(r for r in records if r["name"] == "ilcp_list")
+    log(f"[baselines] the stored-DA ilcp_list kernel (Sada-I-D): device ms "
+        f"{il_rec['device_ms']:.5f} (before its template on the DA source: 0.01446), "
+        "integers equal to its plain version "
+        "and to the host replay (phase 4)")
+    baseline_s = time.perf_counter() - t0
+    log(f"[baselines] phase {baseline_s:.1f} s")
+    del svc, full_batches, large, topk, full_data
     free_device_memory()
     t0 = time.perf_counter()
     cfg = dataclasses.replace(llama3_2_3b.config(), attention_impl="flash")

@@ -4,8 +4,10 @@
 numpy arrays and Python scalars — the layout of the reference package's
 CSA, ILCP, Sada, PDL (listing and top-k) and wavelet/bitvector dataclasses,
 keyed by field name — and returns the port's index object on a device.
-uint32 bit words become their int32 bit patterns; fields the port does not
-keep (Sada's unused filters) are ignored.
+uint32 bit words become their int32 bit patterns.  A field typed as a
+union of bitvectors (Sada's ``hp``: plain, RLE or sparse) takes the type
+whose fields the dict holds, so every Sada variant, C's sparse-table RMQ
+and the DA wavelet matrix carry across as they are.
 
 ``service_from_numpy`` assembles a ``RetrievalService`` from such dicts, so
 the port's query path can be held against the reference on the identical
@@ -74,7 +76,7 @@ def service_from_numpy(coll: Collection, csa: dict, ilcp: dict, sada: dict,
     other fields (``occ_df_threshold``, ``brute_window``)."""
     dev = resolve_device(device)
     if sada.get("variant", "sparse") not in VARIANTS:
-        raise ValueError(f"only the Sada variants {VARIANTS} are ported")
+        raise ValueError(f"unknown Sada variant {sada.get('variant')!r} (have {VARIANTS})")
     return RetrievalService(
         coll=coll,
         csa=from_numpy(CSA, csa, dev),

@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import IDX, TensorDataclass, as_i32, ceil_log2
+from repro_torch.common import IDX, TensorDataclass, arange_i32, as_i32, batch_of_one, ceil_log2
 from repro_torch.core.suffix import SuffixData
 from repro_torch.succinct.bitvector import SparseBitvector, sparse_from_positions
 from repro_torch.succinct.wavelet import WaveletMatrix, wm_access, wm_build, wm_rank
@@ -113,6 +113,16 @@ def csa_search_planned(csa: CSA, patterns, lengths):
 csa_search_batch = csa_search_planned
 
 
+def csa_search(csa: CSA, pattern, length):
+    """SA range [lo, hi) of the suffixes prefixed by ``pattern[:length]``
+    (``pattern``: int32[max_m], padded): ``csa_search_planned`` over a
+    batch of one, as 0-d int32 tensors."""
+    dev = csa.device
+    lo, hi = csa_search_planned(csa, as_i32(pattern, dev).reshape(1, -1),
+                                batch_of_one(length, dev))
+    return lo[0], hi[0]
+
+
 def csa_search_pairs(csa: CSA, patterns, lengths):
     """The same ranges by the reference's pair descent over the wavelet
     matrix (``wm_rank_pair_batch``): a CPU cross-check of the kernel's
@@ -163,3 +173,29 @@ def csa_lookup(csa: CSA, i):
 def csa_doc_of(csa: CSA, text_pos):
     """DA[i] given SA[i]: rank over the document-start bitvector B."""
     return csa.doc_bv.rank1(text_pos + 1) - 1
+
+
+#: SA[i] over a tensor of positions (the reference's vmapped form)
+csa_lookup_batch = csa_lookup
+
+
+def csa_da_at(csa: CSA, i):
+    """DA[i] = rank_B(SA[i]): the Sadakane replacement for a stored DA,
+    elementwise over an int32 tensor of SA positions."""
+    return csa_doc_of(csa, csa_lookup(csa, i))
+
+
+def csa_locate_range(csa: CSA, lo, max_out: int):
+    """SA[lo : lo + max_out] for one start ``lo`` (int or one-element
+    tensor), clamped to n - 1 (the caller masks against hi): int32[max_out]."""
+    idx = batch_of_one(lo, csa.device) + arange_i32(max_out, csa.device)
+    return csa_lookup(csa, torch.clamp(idx, max=csa.n - 1))
+
+
+def doc_at(source, k):
+    """DA[k] from a DA source, elementwise over int32 positions (clamped
+    into [0, n)): a stored document array (int32[n]) or a CSA (locate, then
+    rank over the document starts)."""
+    if isinstance(source, CSA):
+        return csa_da_at(source, torch.clamp(k, 0, source.n - 1)).to(IDX)
+    return source[torch.clamp(k, 0, source.shape[0] - 1).long()]

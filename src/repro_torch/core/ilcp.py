@@ -9,16 +9,20 @@ recursion, run by the port's kernel (``repro_torch.kernels.ilcp_list``),
 whose wrapper takes its plain batch-lockstep version on CPU tensors; both
 report documents in discovery order.  ``ilcp_list_docs_da_batch`` is the
 reference's other route to the same integers: the lockstep machine with
-its RMQs sent through the batched RMQ kernel.
+its RMQs sent through the batched RMQ kernel.  Sada-I-L reads DA through
+the CSA, on the same kernel instantiated on the locate.
+``SkewedWaveletTree`` is the reference's host oracle of Fig 2, in numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.common import IDX, TensorDataclass, batch_of_one, ceil_log2, elias_fano_bits
+from repro_torch.core.csa import CSA
 from repro_torch.core.suffix import SuffixData
 from repro_torch.kernels.ilcp_list import ilcp_list, ilcp_list_plain, runs_of
 from repro_torch.kernels.rmq import rmq
@@ -95,6 +99,14 @@ def build_ilcp(data: SuffixData) -> ILCPIndex:
     )
 
 
+def ilcp_num_runs(data: SuffixData) -> int:
+    """rho, the quantity bounded by Lemma 2."""
+    ilcp = data.ilcp
+    if ilcp.numel() == 0:
+        return 0
+    return int(1 + torch.count_nonzero(ilcp[1:] != ilcp[:-1]))
+
+
 def ilcp_list_docs_da_planned(index: ILCPIndex, da, lo, hi, max_df: int):
     """Sada-I-D over a range batch (masked-query contract of
     repro_torch.core.listing): (docs int32[B, max_df] padded -1, count[B]),
@@ -114,6 +126,32 @@ def ilcp_list_docs_da(index: ILCPIndex, da, lo, hi, max_df: int):
     docs, cnt = ilcp_list_docs_da_planned(index, da, batch_of_one(lo, dev),
                                           batch_of_one(hi, dev), max_df)
     return docs[0], cnt[0]
+
+
+def ilcp_list_docs_csa_batch(index: ILCPIndex, csa: CSA, lo, hi, max_df: int):
+    """Sada-I-L over a range batch: DA read through the CSA (locate +
+    B-rank, Theorem 1's space), on the listing kernel's locate
+    instantiation; the same contract as the -da variant."""
+    return ilcp_list(index.vilcp, index.rmq.table, index.run_starts, csa,
+                     lo.contiguous(), hi.contiguous(), d=index.d, max_df=max_df)
+
+
+def ilcp_list_docs(index: ILCPIndex, source, lo, hi, max_df: int):
+    """Distinct documents of DA[lo, hi) for one range (ints or one-element
+    tensors) via the ILCP recursion, DA from ``source``: a stored array
+    (Sada-I-D) or a CSA (Sada-I-L).  (docs int32[max_df] padded -1, in
+    discovery order; count)."""
+    if isinstance(source, CSA):
+        dev = source.device
+        docs, cnt = ilcp_list_docs_csa_batch(index, source, batch_of_one(lo, dev),
+                                             batch_of_one(hi, dev), max_df)
+        return docs[0], cnt[0]
+    return ilcp_list_docs_da(index, source, lo, hi, max_df)
+
+
+def ilcp_list_docs_csa(index: ILCPIndex, csa: CSA, lo, hi, max_df: int):
+    """Sada-I-L for one range."""
+    return ilcp_list_docs(index, csa, lo, hi, max_df)
 
 
 def ilcp_list_docs_da_batch(index: ILCPIndex, da, lo, hi, max_df: int):
@@ -180,3 +218,73 @@ def ilcp_count_docs(index: ILCPIndex, lo, hi, m):
     dev = index.device
     return ilcp_count_docs_batch(index, batch_of_one(lo, dev), batch_of_one(hi, dev),
                                  batch_of_one(m, dev))[0]
+
+
+# ---------------------------------------------------------------------------
+# Host-side skewed wavelet tree (paper Fig 2) — reference + space model
+# ---------------------------------------------------------------------------
+
+
+class SkewedWaveletTree:
+    """Host-side implementation of the Section 3.4 skewed shape: the leaf
+    of value i at depth 1 + 2 floor(lg(i+1)).  The oracle of the counting
+    path and of its modeled space, over numpy arrays.
+
+    A node is (values_mask_bitvector, left, right).  Spine node S_k covers
+    value groups k, k+1, ...; its left child is a balanced subtree over
+    group k = values [2^{k-1}-1, 2^k-2]."""
+
+    def __init__(self, seq, max_value: int):
+        if isinstance(seq, torch.Tensor):
+            seq = seq.cpu().numpy()
+        self.seq = np.asarray(seq, dtype=np.int64)
+        self.max_value = max_value
+        self.total_bits = 0
+        self.root = self._build_spine(self.seq, 1)
+
+    def _build_spine(self, seq, group):
+        if len(seq) == 0:
+            return None
+        lo_v = (1 << (group - 1)) - 1
+        hi_v = (1 << group) - 2  # inclusive
+        if lo_v > self.max_value:
+            return None
+        go_left = seq <= hi_v
+        self.total_bits += len(seq)
+        left = self._build_balanced(seq[go_left], lo_v, min(hi_v, self.max_value))
+        right = self._build_spine(seq[~go_left], group + 1)
+        return ("spine", go_left, left, right)
+
+    def _build_balanced(self, seq, lo_v, hi_v):
+        if len(seq) == 0 or lo_v > hi_v:
+            return None
+        if lo_v == hi_v:
+            return ("leaf", lo_v, len(seq))
+        mid = (lo_v + hi_v) // 2
+        go_left = seq <= mid
+        self.total_bits += len(seq)
+        return (
+            "node",
+            go_left,
+            self._build_balanced(seq[go_left], lo_v, mid),
+            self._build_balanced(seq[~go_left], mid + 1, hi_v),
+        )
+
+    def count_less(self, lo: int, hi: int, m: int) -> int:
+        """Occurrences of values < m in seq[lo, hi)."""
+
+        def walk(node, lo, hi):
+            if node is None or lo >= hi:
+                return 0
+            if node[0] == "leaf":
+                return hi - lo if node[1] < m else 0
+            _, go_left, left, right = node
+            pref = np.cumsum(go_left)
+            nl_lo = int(pref[lo - 1]) if lo > 0 else 0
+            nl_hi = int(pref[hi - 1]) if hi > 0 else 0
+            return walk(left, nl_lo, nl_hi) + walk(right, lo - nl_lo, hi - nl_hi)
+
+        return walk(self.root, lo, hi)
+
+    def modeled_bits(self) -> int:
+        return self.total_bits + max(1, self.total_bits // 8)

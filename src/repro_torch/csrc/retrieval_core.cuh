@@ -187,6 +187,18 @@ RT_HD int upper_bound(const int32_t* a, int len, int x) {
 }
 
 // ---------------------------------------------------------------------------
+// DA sources: where a listing core reads DA[k], k clamped into [0, n).  A
+// stored document array (DaStored: Sada-I-D, Sada-C-D), or a locate through
+// the CSA (DaLocate, after the CSA locate below: Sada-I-L, Sada-C-L).
+// ---------------------------------------------------------------------------
+
+struct DaStored {
+  const int32_t* da;
+  int n;
+  RT_HD int operator()(int k) const { return RT_LDG(da + iclamp(k, 0, n - 1)); }
+};
+
+// ---------------------------------------------------------------------------
 // ILCP listing (replaces repro/kernels/ilcp_list.py, _ilcp_list_kernel):
 // the Fig-1 recursion of repro/core/ilcp.py run by one warp per query.
 // ---------------------------------------------------------------------------
@@ -229,14 +241,16 @@ RT_HD int run_of(const int32_t* run_starts, int rho, int pos) {
 // *stopped says the scan met such a position while room was left: the
 // recursion's abort.  Device: one position per lane, the seen test in
 // shared memory, repeats by __match_any_sync, the first stop by a ballot.
-RT_HD int ilcp_scan_chunk(const int32_t* da, int n, int d, int k, int j,
-                          int room, uint32_t* seen, int32_t* docs_at,
-                          bool* stopped) {
+// `src` gives DA[k] (a DaStored, or a DaLocate, whose lanes then locate
+// their positions side by side).
+template <class Src>
+RT_HD int ilcp_scan_chunk(const Src& src, int d, int k, int j, int room,
+                          uint32_t* seen, int32_t* docs_at, bool* stopped) {
   const int nvalid = imin(j - k, kWarp);
 #ifdef __CUDA_ARCH__
   const int lane = lane_id();
   const bool valid = lane < nvalid;
-  const int g = valid ? RT_LDG(da + iclamp(k + lane, 0, n - 1)) : 0;
+  const int g = valid ? src(k + lane) : 0;
   const int gc = iclamp(g, 0, d - 1);
   const bool was = valid && ((seen[gc >> 5] >> (gc & 31)) & 1u);
   const unsigned peers = __match_any_sync(0xffffffffu, valid ? gc : -1 - lane);
@@ -253,7 +267,7 @@ RT_HD int ilcp_scan_chunk(const int32_t* da, int n, int d, int k, int j,
 #else
   int32_t g[kWarp];
   int first = kWarp;
-  for (int l = 0; l < nvalid; ++l) g[l] = da[iclamp(k + l, 0, n - 1)];
+  for (int l = 0; l < nvalid; ++l) g[l] = src(k + l);
   for (int l = 0; l < nvalid && first == kWarp; ++l) {
     const int gc = iclamp(g[l], 0, d - 1);
     bool stop = (seen[gc >> 5] >> (gc & 31)) & 1u;
@@ -271,6 +285,13 @@ RT_HD int ilcp_scan_chunk(const int32_t* da, int n, int d, int k, int j,
   return emit;
 }
 
+// The stored-DA form.
+RT_HD int ilcp_scan_chunk(const int32_t* da, int n, int d, int k, int j,
+                          int room, uint32_t* seen, int32_t* docs_at,
+                          bool* stopped) {
+  return ilcp_scan_chunk(DaStored{da, n}, d, k, j, room, seen, docs_at, stopped);
+}
+
 // Lists the distinct documents of DA[lo, hi) in discovery order into
 // docs[0:max_df] (-1 padded) and returns their count; every lane of the
 // warp runs it with the same values.  Each stack entry (stka, stkb, stkr;
@@ -280,10 +301,12 @@ RT_HD int ilcp_scan_chunk(const int32_t* da, int n, int d, int k, int j,
 // in hand.  seen holds ceil(d/32) words, zeroed here.  The trajectory is the
 // reference's: every pop counts toward pop_cap (even an invalid a > b one);
 // a seen document aborts its interval and its pushes; pushes go right
-// (r+1, b) then left (a, r-1) while sp < cap.
+// (r+1, b) then left (a, r-1) while sp < cap.  `src` gives DA[k]: Sada-I-D
+// reads a stored DA (DaStored), Sada-I-L locates through the CSA (DaLocate).
+template <class Src>
 RT_HD int ilcp_list_one(
     const int32_t* vilcp, const int32_t* table, const int32_t* run_starts,
-    const int32_t* da, int levels, int rho, int n, int d, int max_df,
+    const Src& src, int levels, int rho, int d, int max_df,
     int lo, int hi, int lo_run, int hi_run, int32_t* stka, int32_t* stkb,
     int32_t* stkr, uint32_t* seen, int32_t* docs) {
   const int lane = lane_id(), lanes = lane_count();
@@ -315,7 +338,7 @@ RT_HD int ilcp_list_one(
     const int j = imin(hi, RT_LDG(run_starts + iclamp(r + 1, 0, rho)));
     bool stopped = false;
     while (k < j && cnt < max_df && !stopped) {
-      const int e = ilcp_scan_chunk(da, n, d, k, j, max_df - cnt, seen, docs + cnt, &stopped);
+      const int e = ilcp_scan_chunk(src, d, k, j, max_df - cnt, seen, docs + cnt, &stopped);
       k += e;
       cnt += e;
     }
@@ -348,6 +371,16 @@ RT_HD int ilcp_list_one(
   }
   for (int s = cnt + lane; s < max_df; s += lanes) docs[s] = -1;
   return cnt;
+}
+
+// The stored-DA form (Sada-I-D).
+RT_HD int ilcp_list_one(
+    const int32_t* vilcp, const int32_t* table, const int32_t* run_starts,
+    const int32_t* da, int levels, int rho, int n, int d, int max_df,
+    int lo, int hi, int lo_run, int hi_run, int32_t* stka, int32_t* stkb,
+    int32_t* stkr, uint32_t* seen, int32_t* docs) {
+  return ilcp_list_one(vilcp, table, run_starts, DaStored{da, n}, levels, rho, d,
+                       max_df, lo, hi, lo_run, hi_run, stka, stkb, stkr, seen, docs);
 }
 
 // ---------------------------------------------------------------------------
@@ -402,6 +435,143 @@ RT_HD int csa_locate_one(const CsaView& c, int i) {
 // DA[i] given SA[i]: rank over the document starts.
 RT_HD int csa_doc_of(const CsaView& c, int text_pos) {
   return lower_bound(c.doc_starts, c.doc_len, text_pos + 1) - 1;
+}
+
+// DA[k] = rank_B(SA[k]): the Sadakane replacement for a stored DA.
+struct DaLocate {
+  CsaView c;
+  RT_HD int operator()(int k) const {
+    return csa_doc_of(c, csa_locate_one(c, iclamp(k, 0, c.n - 1)));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Sada-C listing (the port's own kernel; the reference's sada_c_list_docs in
+// repro/core/listing.py is XLA): Sadakane's RMQ recursion over the C array
+// with V-marking, one thread per query.
+// ---------------------------------------------------------------------------
+
+// Lists the distinct documents of DA[lo, hi) in discovery order into
+// docs[0:max_df] (-1 padded) and returns their count.  The thread's stack
+// (stack_cap(max_df) intervals) and seen bitmap (ceil(d/32) words, zeroed
+// here) hold entry e at [e * stride].  The trajectory is the reference's:
+// the root interval is (lo, hi - 1); every pop counts toward pop_cap, an
+// invalid one (a > b, or lo >= hi) too; the leftmost argmin k of C over
+// the interval clamped to hi - 1 gives DA[k] (clamped into [0, n) as well,
+// so a masked (0, 0) row reads nothing out of bounds: the reference's
+// index -1 wraps, and the row pops its one invalid interval either way);
+// a seen document prunes the interval and its pushes; an unseen one is
+// reported and pushes (k+1, b), then (a, k-1), while sp < cap.
+template <class Src>
+RT_HD int sada_c_list_one(const int32_t* table, const int32_t* values, int levels,
+                          int n, const Src& src, int d, int max_df, int lo, int hi,
+                          int32_t* stka, int32_t* stkb, uint32_t* seen, int stride,
+                          int32_t* docs) {
+  for (int w = 0; w < (d + 31) / 32; ++w) seen[w * stride] = 0u;
+  const int cap = stack_cap(max_df), max_pops = pop_cap(max_df);
+  stka[0] = lo;
+  stkb[0] = hi - 1;
+  int sp = 1, cnt = 0, pops = 0;
+  while (sp > 0 && cnt < max_df && pops < max_pops) {
+    --sp;
+    ++pops;
+    const int a = stka[sp * stride], b = stkb[sp * stride];
+    if (a > b || lo >= hi) continue;
+    const int k = rmq_leftmost(table, values, levels, n, iclamp(imin(a, hi - 1), 0, n - 1),
+                               iclamp(imin(b, hi - 1), 0, n - 1));
+    const int g = src(k);
+    const int gc = iclamp(g, 0, d - 1);
+    uint32_t* word = seen + (gc >> 5) * stride;
+    if ((*word >> (gc & 31)) & 1u) continue;
+    *word |= 1u << (gc & 31);
+    docs[cnt++] = g;
+    if (k + 1 <= b && sp < cap) {
+      stka[sp * stride] = k + 1;
+      stkb[sp * stride] = b;
+      ++sp;
+    }
+    if (a <= k - 1 && sp < cap) {
+      stka[sp * stride] = a;
+      stkb[sp * stride] = k - 1;
+      ++sp;
+    }
+  }
+  for (int s = cnt; s < max_df; ++s) docs[s] = -1;
+  return cnt;
+}
+
+// ---------------------------------------------------------------------------
+// WT listing (the port's own kernel; the reference's wt_list_docs in
+// repro/core/wtlist.py is XLA): a left-first DFS over the wavelet matrix of
+// DA, one thread per query.
+// ---------------------------------------------------------------------------
+
+// Stack entries of wt_list_one: levels + 2 for levels <= 32.
+constexpr int kWtStack = 34;
+
+// Emits the distinct documents of DA[lo, hi) in ascending order into
+// docs[0:max_df] (-1 padded), each with its frequency hi' - lo' in freqs (0
+// padded), and returns the count.  A node is (level, lo, hi, value prefix);
+// a nonempty internal node at level l pushes its 1-child [z_l + rank1(lo),
+// z_l + rank1(hi)), then its 0-child [rank0(lo), rank0(hi)), each if
+// nonempty, so the 0-child (smaller ids) pops first; a nonempty leaf
+// (level == levels) emits its prefix, the document.  One word and one
+// prefix read per range end and level (wm_rank1).
+// The stack never holds more than levels + 1 entries: after a pop at level
+// l it holds at most one pending 1-child at each level 1..l and the two
+// children at l + 1.  The reference's caps, max_df (levels + 1) + 4 entries
+// and 4 max_df (levels + 1) + 16 pops, therefore never bind: every pop but
+// an empty root's takes a nonempty node on the way down to the next leaf
+// emitted, at most levels + 1 of them per leaf, so a query pops at most
+// max(1, count (levels + 1)) times.  *pops and *depth (when not null)
+// report the pops and the deepest stack, for the host build's test.
+RT_HD int wt_list_one(const int32_t* words, const int32_t* prefix,
+                      const int32_t* zcount, int levels, int stride, int lo, int hi,
+                      int max_df, int32_t* docs, int32_t* freqs, int* pops_out,
+                      int* depth_out) {
+  int sl[kWtStack], sa[kWtStack], sb[kWtStack], sv[kWtStack];
+  sl[0] = 0;
+  sa[0] = lo;
+  sb[0] = hi;
+  sv[0] = 0;
+  int sp = 1, cnt = 0, pops = 0, depth = 1;
+  while (sp > 0 && cnt < max_df) {
+    --sp;
+    ++pops;
+    const int lvl = sl[sp], a = sa[sp], b = sb[sp], val = sv[sp];
+    if (a >= b) continue;
+    if (lvl >= levels) {
+      docs[cnt] = val;
+      freqs[cnt] = b - a;
+      ++cnt;
+      continue;
+    }
+    const int r1a = wm_rank1(words, prefix, stride, lvl, a);
+    const int r1b = wm_rank1(words, prefix, stride, lvl, b);
+    const int z = RT_LDG(zcount + lvl);
+    if (r1a < r1b && sp < kWtStack) {
+      sl[sp] = lvl + 1;
+      sa[sp] = z + r1a;
+      sb[sp] = z + r1b;
+      sv[sp] = (val << 1) | 1;
+      ++sp;
+    }
+    if (a - r1a < b - r1b && sp < kWtStack) {
+      sl[sp] = lvl + 1;
+      sa[sp] = a - r1a;
+      sb[sp] = b - r1b;
+      sv[sp] = val << 1;
+      ++sp;
+    }
+    depth = imax(depth, sp);
+  }
+  for (int s = cnt; s < max_df; ++s) {
+    docs[s] = -1;
+    freqs[s] = 0;
+  }
+  if (pops_out) *pops_out = pops;
+  if (depth_out) *depth_out = depth;
+  return cnt;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) launchers of the port's five retrieval kernels, with a plain C
+// Hopper (sm_90a) launchers of the port's seven retrieval kernels, with a plain C
 // interface loaded through ctypes by repro_torch/kernels/_build.py.
 //
 // backward_search: replaces repro/kernels/backward_search.py,
@@ -56,8 +56,31 @@
 //   the helper the fused ILCP listing uses).  Bound on this card: bytes and
 //   latency of those four dependent, scattered reads.
 //
-// backward_search, rank and rmq are first versions that are simple and
-// right; cp.async/TMA staging of the wavelet levels is later work.
+// sada_c_list: the port's own kernel (the reference's sada_c_list_docs,
+//   repro/core/listing.py, is XLA: the paper's Sada-C baseline).  One thread
+//   per query runs Sadakane's RMQ recursion over C (rt::sada_c_list_one),
+//   its interval stack and seen bitmap in shared memory, interleaved across
+//   the block's threads; DA[k] from a stored array (Sada-C-D) or by a CSA
+//   locate (Sada-C-L), one template each.  Bound on this card: latency of
+//   the dependent pop -> RMQ (table, then values) -> DA chain, one chain per
+//   reported document; Sada-C-L adds each locate's LF walk (up to
+//   sample_rate steps, each a binary search over the samples and a wavelet
+//   descent).
+//
+// ilcp_list also runs Sada-I-L: the same kernel instantiated on the CSA
+//   locate (rt::DaLocate), each lane of the warp locating its own position
+//   of a run's 32-position chunk.
+//
+// wt_list: the port's own kernel (the reference's wt_list_docs,
+//   repro/core/wtlist.py, is XLA: the WT baseline).  One thread per query
+//   runs the left-first DFS over the DA wavelet matrix (rt::wt_list_one) with
+//   a stack of levels + 2 entries in local memory.  Bound on this card:
+//   latency, one dependent word-and-prefix read per internal node, at most
+//   df (levels + 1) nodes a query.
+//
+// backward_search, rank, rmq, sada_c_list and wt_list are first versions
+// that are simple and right; cp.async/TMA staging of the wavelet levels and
+// a warp per query for the baselines are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,22 +104,59 @@ __global__ void backward_search_kernel(
                           lengths[q], lo + q, hi + q);
 }
 
+template <class Src>
 __global__ void ilcp_list_kernel(
     const int32_t* __restrict__ vilcp, const int32_t* __restrict__ table,
-    const int32_t* __restrict__ run_starts, const int32_t* __restrict__ da,
+    const int32_t* __restrict__ run_starts, const Src src,
     const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
     int32_t* __restrict__ docs, int32_t* __restrict__ cnt, int levels,
-    int rho, int n, int d, int max_df) {
+    int rho, int d, int max_df) {
   extern __shared__ int32_t smem[];
   const int q = blockIdx.x;
   const int cap = rt::stack_cap(max_df);
   const int a = lo[q], b = hi[q];
   const int c = rt::ilcp_list_one(
-      vilcp, table, run_starts, da, levels, rho, n, d, max_df, a, b,
+      vilcp, table, run_starts, src, levels, rho, d, max_df, a, b,
       rt::run_of(run_starts, rho, a), rt::run_of(run_starts, rho, b - 1),
       smem, smem + cap, smem + 2 * cap,
       reinterpret_cast<uint32_t*>(smem + 3 * cap), docs + (int64_t)q * max_df);
   if (threadIdx.x == 0) cnt[q] = c;
+}
+
+// One thread per query; each thread's stack and seen bitmap interleaved
+// with its block's (entry e at e * blockDim.x), so a warp's entries fall in
+// distinct banks.
+template <class Src>
+__global__ void sada_c_list_kernel(
+    const int32_t* __restrict__ table, const int32_t* __restrict__ values,
+    const Src src, const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
+    int32_t* __restrict__ docs, int32_t* __restrict__ cnt, int B, int levels,
+    int n, int d, int max_df) {
+  extern __shared__ int32_t smem[];
+  const int threads = blockDim.x, t = threadIdx.x;
+  const int q = blockIdx.x * threads + t;
+  if (q >= B) return;
+  const int cap = rt::stack_cap(max_df);
+  cnt[q] = rt::sada_c_list_one(
+      table, values, levels, n, src, d, max_df, lo[q], hi[q], smem + t,
+      smem + cap * threads + t,
+      reinterpret_cast<uint32_t*>(smem + 2 * cap * threads) + t, threads,
+      docs + (int64_t)q * max_df);
+}
+
+constexpr int kWtThreads = 32;
+
+__global__ void wt_list_kernel(
+    const int32_t* __restrict__ words, const int32_t* __restrict__ prefix,
+    const int32_t* __restrict__ zcount, const int32_t* __restrict__ lo,
+    const int32_t* __restrict__ hi, int32_t* __restrict__ docs,
+    int32_t* __restrict__ freqs, int32_t* __restrict__ cnt, int B, int levels,
+    int stride, int max_df) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= B) return;
+  cnt[q] = rt::wt_list_one(words, prefix, zcount, levels, stride, lo[q], hi[q], max_df,
+                           docs + (int64_t)q * max_df, freqs + (int64_t)q * max_df,
+                           nullptr, nullptr);
 }
 
 constexpr int kGatherThreads = 256;
@@ -137,6 +197,65 @@ __global__ void rmq_kernel(const int32_t* __restrict__ values,
 
 int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
 
+rt::CsaView csa_view(const void* words, const void* prefix, const void* zcount,
+                     const void* counts, const void* sym_starts, const void* sampled,
+                     const void* samples, const void* doc_starts, int levels,
+                     int stride, int n, int sample_rate, int sampled_len,
+                     int sampled_m, int doc_len) {
+  return rt::CsaView{
+      (const int32_t*)words, (const int32_t*)prefix, (const int32_t*)zcount,
+      (const int32_t*)counts, (const int32_t*)sym_starts,
+      (const int32_t*)sampled, (const int32_t*)samples,
+      (const int32_t*)doc_starts, levels, stride, n, sample_rate,
+      sampled_len, sampled_m, doc_len};
+}
+
+// Raises the kernel's dynamic shared memory limit above 48 KB when `smem`
+// needs it; a card that cannot give it returns the error.
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Shared memory per query of the ILCP listing: three interval stacks and
+// the seen bitmap.
+template <class Src>
+int launch_ilcp_list(const void* vilcp, const void* table, const void* run_starts,
+                     const Src& src, const void* lo, const void* hi, void* docs,
+                     void* cnt, int B, int levels, int rho, int d, int max_df,
+                     void* stream) {
+  const size_t smem =
+      sizeof(int32_t) * (3 * (size_t)rt::stack_cap(max_df) + (d + 31) / 32);
+  const cudaError_t e = allow_shared(ilcp_list_kernel<Src>, smem);
+  if (e != cudaSuccess) return (int)e;
+  ilcp_list_kernel<Src><<<B, rt::kWarp, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)vilcp, (const int32_t*)table, (const int32_t*)run_starts, src,
+      (const int32_t*)lo, (const int32_t*)hi, (int32_t*)docs, (int32_t*)cnt, levels,
+      rho, d, max_df);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory per thread of the Sada-C listing: two interval stacks and
+// the seen bitmap; `threads` queries per block (the wrapper sizes it to the
+// card's limit).
+template <class Src>
+int launch_sada_c_list(const void* table, const void* values, const Src& src,
+                       const void* lo, const void* hi, void* docs, void* cnt, int B,
+                       int levels, int n, int d, int max_df, int threads,
+                       void* stream) {
+  const size_t smem = sizeof(int32_t) * (size_t)threads *
+                      (2 * (size_t)rt::stack_cap(max_df) + (d + 31) / 32);
+  const cudaError_t e = allow_shared(sada_c_list_kernel<Src>, smem);
+  if (e != cudaSuccess) return (int)e;
+  sada_c_list_kernel<Src><<<(B + threads - 1) / threads, threads, smem,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)table, (const int32_t*)values, src, (const int32_t*)lo,
+      (const int32_t*)hi, (int32_t*)docs, (int32_t*)cnt, B, levels, n, d, max_df);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -155,24 +274,66 @@ int rt_backward_search(const void* words, const void* prefix,
   return (int)cudaGetLastError();
 }
 
-// Shared memory per query: three interval stacks and the seen bitmap.  The
-// wrapper checks it against the card's limit before the launch.
+// The wrapper checks the shared memory against the card's limit before the
+// launch.  Sada-I-D: DA read from a stored array.
 int rt_ilcp_list(const void* vilcp, const void* table, const void* run_starts,
                  const void* da, const void* lo, const void* hi, void* docs,
                  void* cnt, int B, int levels, int rho, int n, int d,
                  int max_df, void* stream) {
-  const size_t smem =
-      sizeof(int32_t) * (3 * (size_t)rt::stack_cap(max_df) + (d + 31) / 32);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ilcp_list_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  ilcp_list_kernel<<<B, rt::kWarp, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)vilcp, (const int32_t*)table,
-      (const int32_t*)run_starts, (const int32_t*)da, (const int32_t*)lo,
-      (const int32_t*)hi, (int32_t*)docs, (int32_t*)cnt, levels, rho, n, d,
-      max_df);
+  return launch_ilcp_list(vilcp, table, run_starts, rt::DaStored{(const int32_t*)da, n},
+                          lo, hi, docs, cnt, B, levels, rho, d, max_df, stream);
+}
+
+// Sada-I-L: the CSA's operands in the order of rt::CsaView (pointers, then
+// sizes), then the listing's; each lane locates its own position.
+int rt_ilcp_list_csa(
+    const void* words, const void* prefix, const void* zcount, const void* counts,
+    const void* sym_starts, const void* sampled, const void* samples,
+    const void* doc_starts, const void* vilcp, const void* table,
+    const void* run_starts, const void* lo, const void* hi, void* docs, void* cnt,
+    int csa_levels, int stride, int n, int sample_rate, int sampled_len,
+    int sampled_m, int doc_len, int B, int levels, int rho, int d, int max_df,
+    void* stream) {
+  const rt::DaLocate src{csa_view(words, prefix, zcount, counts, sym_starts, sampled,
+                                  samples, doc_starts, csa_levels, stride, n,
+                                  sample_rate, sampled_len, sampled_m, doc_len)};
+  return launch_ilcp_list(vilcp, table, run_starts, src, lo, hi, docs, cnt, B, levels,
+                          rho, d, max_df, stream);
+}
+
+// Sada-C-D: the RMQ table and values over C ([levels, n], [n]) and DA.
+int rt_sada_c_list(const void* table, const void* values, const void* da,
+                   const void* lo, const void* hi, void* docs, void* cnt, int B,
+                   int levels, int n, int d, int max_df, int threads, void* stream) {
+  return launch_sada_c_list(table, values, rt::DaStored{(const int32_t*)da, n}, lo, hi,
+                            docs, cnt, B, levels, n, d, max_df, threads, stream);
+}
+
+// Sada-C-L: the CSA's operands as for rt_ilcp_list_csa, then the RMQ's.
+int rt_sada_c_list_csa(
+    const void* words, const void* prefix, const void* zcount, const void* counts,
+    const void* sym_starts, const void* sampled, const void* samples,
+    const void* doc_starts, const void* table, const void* values, const void* lo,
+    const void* hi, void* docs, void* cnt, int csa_levels, int stride, int n,
+    int sample_rate, int sampled_len, int sampled_m, int doc_len, int B, int levels,
+    int d, int max_df, int threads, void* stream) {
+  const rt::DaLocate src{csa_view(words, prefix, zcount, counts, sym_starts, sampled,
+                                  samples, doc_starts, csa_levels, stride, n,
+                                  sample_rate, sampled_len, sampled_m, doc_len)};
+  return launch_sada_c_list(table, values, src, lo, hi, docs, cnt, B, levels, n, d,
+                            max_df, threads, stream);
+}
+
+// WT: the DA wavelet matrix's levels ([levels, stride] words and prefix,
+// [levels] zero counts); docs, freqs: [B, max_df].
+int rt_wt_list(const void* words, const void* prefix, const void* zcount,
+               const void* lo, const void* hi, void* docs, void* freqs, void* cnt,
+               int B, int levels, int stride, int max_df, void* stream) {
+  wt_list_kernel<<<(B + kWtThreads - 1) / kWtThreads, kWtThreads, 0,
+                   (cudaStream_t)stream>>>(
+      (const int32_t*)words, (const int32_t*)prefix, (const int32_t*)zcount,
+      (const int32_t*)lo, (const int32_t*)hi, (int32_t*)docs, (int32_t*)freqs,
+      (int32_t*)cnt, B, levels, stride, max_df);
   return (int)cudaGetLastError();
 }
 
@@ -194,12 +355,9 @@ int rt_pdl_gather(
     int lenA, int nrule, int nruns, int block_size, int iter_cap,
     int stack_size, int has_freqs, int B, int max_buf, int max_cover,
     void* stream) {
-  const rt::CsaView csa{
-      (const int32_t*)words, (const int32_t*)prefix, (const int32_t*)zcount,
-      (const int32_t*)counts, (const int32_t*)sym_starts,
-      (const int32_t*)sampled, (const int32_t*)samples,
-      (const int32_t*)doc_starts, levels, stride, n, sample_rate,
-      sampled_len, sampled_m, doc_len};
+  const rt::CsaView csa = csa_view(words, prefix, zcount, counts, sym_starts, sampled,
+                                   samples, doc_starts, levels, stride, n, sample_rate,
+                                   sampled_len, sampled_m, doc_len);
   const rt::PdlView pdl{
       (const int32_t*)leaf_starts, (const uint8_t*)is_first_child,
       (const int32_t*)parent_of, (const int32_t*)next_leaf,
@@ -209,11 +367,8 @@ int rt_pdl_gather(
       nrule, nruns, block_size, iter_cap, stack_size, has_freqs};
   const size_t smem =
       sizeof(int32_t) * (size_t)rt::pdl_scratch_ints(kGatherThreads, stack_size);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pdl_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_shared(pdl_gather_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   pdl_gather_kernel<<<B, kGatherThreads, smem, (cudaStream_t)stream>>>(
       csa, pdl, (const int32_t*)lo, (const int32_t*)hi, (int32_t*)buf,
       (int32_t*)fbuf, (int32_t*)count, max_buf, max_cover);

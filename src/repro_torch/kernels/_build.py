@@ -40,6 +40,10 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "rt_backward_search": [_VP] * 8 + [_I] * 6 + [_VP],
     "rt_ilcp_list": [_VP] * 8 + [_I] * 6 + [_VP],
+    "rt_ilcp_list_csa": [_VP] * 15 + [_I] * 12 + [_VP],
+    "rt_sada_c_list": [_VP] * 7 + [_I] * 6 + [_VP],
+    "rt_sada_c_list_csa": [_VP] * 14 + [_I] * 12 + [_VP],
+    "rt_wt_list": [_VP] * 8 + [_I] * 4 + [_VP],
     "rt_pdl_gather": [_VP] * 24 + [_I] * 20 + [_VP],
     "rt_rank": [_VP] * 4 + [_I] + [_VP],
     "rt_rmq": [_VP] * 5 + [_I] * 3 + [_VP],

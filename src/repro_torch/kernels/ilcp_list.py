@@ -9,6 +9,10 @@ each run's document positions tested 32 at a time.  The plain version is the ref
 POP/SCAN machine (``repro.kernels.ref.ilcp_list_ref``) in PyTorch.  Both
 replay the per-query trajectory (pop order, push filters, truncation) and
 report documents in discovery order, so their integers are identical.
+
+The DA source is a stored document array (Sada-I-D) or a CSA (Sada-I-L:
+the kernel instantiated on ``rt::DaLocate``, each lane locating its own
+position of a run's chunk; the plain version reads ``core.csa.doc_at``).
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common import IDX, searchsorted_i32
+from repro_torch.core.csa import CSA, doc_at
 from repro_torch.kernels import _build
+from repro_torch.kernels.csa_view import check_csa_operands
 from repro_torch.kernels.rmq import rmq_plain
 
 
@@ -44,7 +50,8 @@ def ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run, hi_run, *,
                     d: int, max_df: int, rmq_fn=None):
     """Plain PyTorch version of the kernel: the whole batch advances in
     lockstep; an iteration either pops an interval and resolves its
-    leftmost-min run (POP) or visits one DA position (SCAN).  ``V`` is a
+    leftmost-min run (POP) or visits one DA position (SCAN), read from
+    the DA source ``da`` (a stored int32[n] array or a CSA).  ``V`` is a
     [B, d] bool matrix; writes that the reference drops go to one extra
     column that is sliced off.  Syncs with the host once per iteration.
 
@@ -53,7 +60,6 @@ def ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run, hi_run, *,
     default is the plain sparse-table RMQ.  Returns (docs int32[B, max_df]
     padded -1, cnt int32[B])."""
     rho = table.shape[1]
-    n = da.shape[0]
     B = lo.shape[0]
     dev = lo.device
     cap = stack_cap(max_df)
@@ -99,7 +105,7 @@ def ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run, hi_run, *,
         # -- SCAN: visit one DA position of the current run
         scanning = ~done & scan
         proc = scanning & (k < j) & (cnt < max_df)
-        g = da[torch.clamp(k, 0, n - 1)]
+        g = doc_at(da, k)
         gc = torch.clamp(g, 0, max(d - 1, 0)).long()
         seen = V[rows, gc]
         rep = proc & ~seen
@@ -127,11 +133,14 @@ def ilcp_list_plain(vilcp, table, run_starts, da, lo, hi, lo_run, hi_run, *,
 def ilcp_list(vilcp, table, run_starts, da, lo, hi, *, d: int, max_df: int):
     """Batched ILCP document listing over SA ranges [lo, hi):
     (docs int32[B, max_df] padded -1 in discovery order, cnt int32[B]).
+    ``da`` is the DA source: a stored int32[n] array (Sada-I-D) or a CSA
+    (Sada-I-L).
 
     On CUDA tensors this launches the kernel (counted in
-    ``ilcp_list.launches``); on CPU tensors it runs the plain version.
-    ``B == 0``, ``max_df <= 0`` and ``d <= 0`` have a closed-form empty
-    answer and launch nothing."""
+    ``ilcp_list.launches``, or ``ilcp_list.csa_launches`` for a CSA
+    source); on CPU tensors it runs the plain version.  ``B == 0``,
+    ``max_df <= 0`` and ``d <= 0`` have a closed-form empty answer and
+    launch nothing."""
     B = lo.shape[0]
     dev = lo.device
     if B == 0 or max_df <= 0 or d <= 0:
@@ -142,8 +151,7 @@ def ilcp_list(vilcp, table, run_starts, da, lo, hi, *, d: int, max_df: int):
                                runs_of(run_starts, lo), runs_of(run_starts, hi - 1),
                                d=d, max_df=max_df)
     for name, t, dims in (("vilcp", vilcp, 1), ("table", table, 2),
-                          ("run_starts", run_starts, 1), ("da", da, 1),
-                          ("lo", lo, 1), ("hi", hi, 1)):
+                          ("run_starts", run_starts, 1), ("lo", lo, 1), ("hi", hi, 1)):
         _build.check_operand(name, t, dims, dev)
     levels, rho = table.shape
     if vilcp.shape[0] != rho or run_starts.shape[0] != rho + 1 or hi.shape[0] != B:
@@ -154,10 +162,21 @@ def ilcp_list(vilcp, table, run_starts, da, lo, hi, *, d: int, max_df: int):
                          f"shared memory per query, over the card's {_build.MAX_SHARED_BYTES}")
     docs = torch.empty((B, max_df), dtype=IDX, device=dev)
     cnt = torch.empty(B, dtype=IDX, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ops = (vilcp.data_ptr(), table.data_ptr(), run_starts.data_ptr(), lo.data_ptr(),
+           hi.data_ptr(), docs.data_ptr(), cnt.data_ptr())
+    if isinstance(da, CSA):
+        ptrs, ints = check_csa_operands(da, dev)
+        err = _build.library().rt_ilcp_list_csa(*ptrs, *ops, *ints, B, levels, rho, d,
+                                                max_df, stream)
+        _build.check(err, "ilcp_list[csa]")
+        ilcp_list.csa_launches += 1
+        return docs, cnt
+    _build.check_operand("da", da, 1, dev)
     err = _build.library().rt_ilcp_list(
         vilcp.data_ptr(), table.data_ptr(), run_starts.data_ptr(), da.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), docs.data_ptr(), cnt.data_ptr(), B, levels, rho,
-        int(da.shape[0]), d, max_df, torch.cuda.current_stream(dev).cuda_stream,
+        int(da.shape[0]), d, max_df, stream,
     )
     _build.check(err, "ilcp_list")
     ilcp_list.launches += 1
@@ -165,3 +184,4 @@ def ilcp_list(vilcp, table, run_starts, da, lo, hi, *, d: int, max_df: int):
 
 
 ilcp_list.launches = 0
+ilcp_list.csa_launches = 0

@@ -29,6 +29,7 @@ import torch
 from repro_torch.common import IDX, searchsorted_i32
 from repro_torch.core.csa import CSA, csa_doc_of, csa_lookup
 from repro_torch.kernels import _build
+from repro_torch.kernels.csa_view import csa_operands
 
 if TYPE_CHECKING:
     from repro_torch.core.pdl import PDLIndex
@@ -197,21 +198,15 @@ def kernel_operands(index: PDLIndex, csa: CSA):
     """The launcher's index operands in its order (``rt::CsaView`` then
     ``rt::PdlView``): (tensors, ints).  Also the order of the core's host
     build in the tests."""
-    wm = csa.wm
-    tensors = [
-        ("words", wm.words, 2), ("prefix", wm.ones_prefix, 2), ("zcount", wm.zcount, 1),
-        ("counts", csa.counts, 1), ("sym_starts", wm.sym_starts, 1),
-        ("sampled", csa.sampled.pos, 1), ("samples", csa.samples, 1),
-        ("doc_starts", csa.doc_bv.pos, 1),
+    tensors, ints = csa_operands(csa)
+    tensors += [
         ("leaf_starts", index.leaf_starts, 1), ("is_first_child", index.is_first_child, 1),
         ("parent_of", index.parent_of, 1), ("next_leaf", index.next_leaf, 1),
         ("set_off", index.set_off, 1), ("A", index.A, 1), ("rule_left", index.rule_left, 1),
         ("rule_right", index.rule_right, 1), ("doc_base", index.doc_base, 1),
         ("freq_vals", index.freq_vals, 1), ("freq_gcum", index.freq_gcum, 1),
     ]
-    ints = [
-        wm.levels, int(wm.words.shape[1]), csa.n, csa.sample_rate,
-        int(csa.sampled.pos.shape[0]), csa.sampled.m, int(csa.doc_bv.pos.shape[0]),
+    ints += [
         index.L, index.I, index.d, int(index.A.shape[0]), int(index.rule_left.shape[0]),
         int(index.freq_vals.shape[0]), index.block_size, iter_cap(index), stack_size(index),
         int(index.has_freqs),

@@ -8,7 +8,8 @@ algorithms assume and raise :class:`repro_torch.errors.IndexIntegrityError`
 on the first violation, with the reference's messages:
 
 * bitvectors: rank metadata recomputed from the words; no set bits beyond
-  ``n``; sparse positions strictly increasing and in range;
+  ``n``; sparse positions strictly increasing and in range; RLE runs
+  tiling ``[0, n)``, their ones prefix decoded from the run lengths;
 * wavelet matrices: per-level zero counts against the level popcounts, and
   ``sym_starts`` re-derived by the per-symbol descent of position 0;
 * CSA: the C array (monotone, ``C[0] = 0``, ``C[1] = d``), the BWT's
@@ -18,8 +19,9 @@ on the first violation, with the reference's messages:
   lengths ending at ``n``, the RMQ built over the run heads;
 * PDL: leaf tiling, set offsets, grammar symbol ranges, strictly
   increasing top-k frequency cumulatives;
-* Sada: the unary H' encoding one 1 per slot (the port keeps no filter
-  bitvectors: its variants ``plain`` and ``sparse`` use none).
+* Sada: the unary H' encoding one 1 per slot (``plain``, ``rle``,
+  ``sparse``) or per filtered slot (``filter_plain``, ``sparse_sparse``),
+  and both filters well formed.
 
 The bit-level checks run on the host copy of each array; the two
 wavelet-matrix descents (``sym_starts`` and ``wm_symbol_histogram``) run
@@ -27,8 +29,8 @@ on the index's device.  ``fingerprint_service`` checksums every tensor
 (CRC32 over the tensor fields in field order, recursing into nested index
 objects, skipping integer metadata), so a load path can detect bit-level
 corruption that keeps every invariant; the checksums of ``csa``, ``ilcp``,
-``pdl_list``, ``pdl_topk`` and ``da`` equal the reference's.  The RLE
-bitvector is not ported yet, nor the sharded service's validation.
+``pdl_list``, ``pdl_topk``, ``sada`` (every variant) and ``da`` equal the
+reference's.  The sharded service's validation is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import torch
 
 from repro_torch.common import TensorDataclass, rank1_words
 from repro_torch.errors import IndexIntegrityError
-from repro_torch.succinct.bitvector import PlainBitvector, SparseBitvector
+from repro_torch.succinct.bitvector import PlainBitvector, RLEBitvector, SparseBitvector
 from repro_torch.succinct.wavelet import WaveletMatrix
 
 
@@ -104,11 +106,28 @@ def validate_sparse_bitvector(bv: SparseBitvector, name: str) -> None:
     _req(0 <= int(pos[0]) and int(pos[-1]) < bv.n, name, "position out of [0, n)")
 
 
+def validate_rle_bitvector(bv: RLEBitvector, name: str) -> None:
+    rs, ones = _np(bv.run_starts), _np(bv.ones_prefix)
+    _req(rs.shape[0] == bv.nruns + 1 == ones.shape[0], name,
+         "run_starts/ones_prefix length mismatch")
+    _req(int(rs[0]) == 0 and int(rs[-1]) == bv.n, name,
+         "runs do not tile [0, n)")
+    _req((np.diff(rs) > 0).all() if bv.nruns else True, name,
+         "empty or reordered run")
+    lens = np.diff(rs)
+    vals = np.bitwise_xor(np.arange(bv.nruns) & 1, bv.first_bit)
+    want = np.concatenate([[0], np.cumsum(lens * vals)])
+    _req(np.array_equal(ones, want), name, "ones_prefix != run decode")
+    _req(int(want[-1]) == bv.m, name, f"m={bv.m} != decoded ones {int(want[-1])}")
+
+
 def _validate_any_bitvector(bv, name: str) -> None:
     if isinstance(bv, PlainBitvector):
         validate_plain_bitvector(bv, name)
     elif isinstance(bv, SparseBitvector):
         validate_sparse_bitvector(bv, name)
+    elif isinstance(bv, RLEBitvector):
+        validate_rle_bitvector(bv, name)
     else:  # pragma: no cover - new variants must be wired in here
         raise IndexIntegrityError(f"{name}: unknown bitvector type {type(bv)}")
 
@@ -264,8 +283,14 @@ def validate_pdl(pdl, name: str = "pdl") -> None:
 def validate_sada(sada, name: str = "sada") -> None:
     _req(sada.num_slots == max(0, sada.n - 1), name, "num_slots != n - 1")
     _validate_any_bitvector(sada.hp, f"{name}.hp")
-    # the port's variants (plain, sparse) encode every slot: one 1 each
-    _req(sada.hp.m == sada.num_slots, name, "unary H' does not encode every slot")
+    validate_sparse_bitvector(sada.fs, f"{name}.fs")
+    validate_sparse_bitvector(sada.f1, f"{name}.f1")
+    # the unary H' code has one 1 per encoded slot; which slots are encoded
+    # depends on the variant
+    if sada.variant in ("plain", "rle", "sparse"):
+        _req(sada.hp.m == sada.num_slots, name, "unary H' does not encode every slot")
+    else:  # filter_plain / sparse_sparse: H' restricted to the filtered slots
+        _req(sada.hp.m == sada.fs.m, name, "unary H' ones != filtered slot count")
 
 
 # ---------------------------------------------------------------------------

@@ -78,3 +78,14 @@ def leftmost_argmin(values, table, lo, hi):
 def rmq_query(rmq: SparseTableRMQ, lo, hi):
     """Leftmost argmin of values[lo..hi] inclusive."""
     return leftmost_argmin(rmq.values, rmq.table, lo, hi)
+
+
+def rmq_modeled_bits_succinct(n: int) -> int:
+    """The paper's choice: Fischer-Heun 2n + o(n) bits."""
+    return 2 * n + max(1, n // 4)
+
+
+def rmq_modeled_bits_table(rmq: SparseTableRMQ) -> int:
+    """What the working layout stores: the table and the values, 32 bits
+    each."""
+    return int(rmq.table.numel()) * 32 + int(rmq.values.numel()) * 32

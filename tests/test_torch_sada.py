@@ -109,5 +109,8 @@ def test_plain_sada_carried_across(data):
 
 
 def test_unported_variant_refused(data):
+    """Every variant of the reference is ported; a name outside ``VARIANTS``
+    is refused."""
+    assert tsada.VARIANTS == jsada.VARIANTS
     with pytest.raises(ValueError):
-        tsada.build_sada(data[1], "rle")
+        tsada.build_sada(data[1], "rle_sparse")

@@ -17,11 +17,14 @@ import pytest
 import torch
 
 from repro.common import replace as jreplace
+from repro.core import sada as jsada
+from repro.core.suffix import build_suffix_data as jbuild_suffix_data
 from repro.data.collections import SyntheticSpec, generate
 from repro.errors import IndexIntegrityError as JIntegrity
 from repro.serve import validate as jval
 from repro.serve.retrieval import RetrievalService as JService
-from repro_torch.core.suffix import Collection
+from repro_torch.core import sada as tsada
+from repro_torch.core.suffix import Collection, build_suffix_data
 from repro_torch.errors import IndexIntegrityError as TIntegrity
 from repro_torch.serve import validate as tval
 from repro_torch.serve.retrieval import RetrievalService as TService
@@ -61,13 +64,20 @@ def test_fingerprint_equals_reference(svcs, comp):
     assert tval.checksum(getattr(tsvc, comp)) == jval.checksum_pytree(getattr(jsvc, comp))
 
 
-def test_sada_fingerprint_is_that_of_hp(svcs):
-    """The reference's Sada also holds two one-entry placeholder sparse
-    bitvectors (``fs``, ``f1``) that its ``sparse`` variant never reads; the
-    port keeps only ``hp``, whose CRC equals the reference's."""
+@pytest.mark.parametrize("variant", jsada.VARIANTS)
+def test_sada_fingerprint_is_that_of_hp(svcs, variant):
+    """Sada's fingerprint equals the reference's for every variant: the
+    port's Sada holds ``hp`` and the two filters ``fs`` and ``f1`` (one-entry
+    placeholders where the variant reads none), the reference's arrays in
+    its order.  (The name dates from when the port kept only ``hp``.)"""
     jsvc, tsvc = svcs
-    assert tsvc.fingerprints["sada"] == jval.checksum_pytree(jsvc.sada.hp)
-    assert tsvc.fingerprints["sada"] != jsvc.fingerprints["sada"]
+    if variant == "sparse":  # what both services build
+        assert tsvc.fingerprints["sada"] == jsvc.fingerprints["sada"]
+    want = jsada.build_sada(jbuild_suffix_data(jsvc.coll), variant)
+    got = tsada.build_sada(build_suffix_data(tsvc.coll, "cpu"), variant)
+    tval.validate_sada(got)
+    assert tval.checksum(got) == jval.checksum_pytree(want)
+    assert tval.checksum(got) != tval.checksum(got.hp)
 
 
 def test_service_without_topk_index_skips_it():
