@@ -136,6 +136,27 @@ Phases (any failure exits non-zero; nothing is caught):
    index and phase 3's (n = 16,385,280): on the same ranges every df
    equals the sparse variant's, the ILCP count and the oracle; bits per
    char and count time per batch.
+8. The docs-sharded service (after phase 7, on the collections and
+   batches of phases 2 and 2b): ``RetrievalService.build(mesh=...)`` with
+   4 document shards on the card.  8a: phase 2's collection (shards of
+   80 documents, no top-k PDL): ``plan``, ``count``, ``count`` with an
+   unknown engine name (df, as the reference), ``list_docs`` (auto, ilcp,
+   brute, pdl, and auto with a pinned window) at ``max_df = d + 1`` and a
+   buffer above every occ, so that no row truncates.  8b: phase 2b's
+   collection (both PDLs): ``topk`` (k = 10, the five cases of phase 2b)
+   and ``tfidf`` (or, and) on its batches.  Every answer equal to the flat
+   service's on the same batches (tf-idf scores bit for bit); each call's
+   launches one replay of each program times the shards (plus a warm-up
+   where it captured), no rank or RMQ launch; the answers bit-identical
+   to the sharded programs run eagerly; one capture per (kind, bucket);
+   every sharded program run eagerly under
+   ``set_sync_debug_mode("error")``.  Per-batch p50 of each endpoint,
+   sharded beside flat, in turns; build seconds per shard;
+   ``validate_sharded_service`` seconds and a tampered shard rejected; a
+   short clean ``ServeRuntime`` pass (list, count) over 8a's service.
+   Then ``tfidf_topk_incremental`` on 32 two-term queries of phase 2b's
+   flat service (or, and): documents and scores equal to the same call
+   on a CPU copy of the index, one PDL gather launch per term.
 
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -355,14 +376,16 @@ def uncounted(kernels):
             k.launches = n
 
 
-def checked_call(svc, kernels, kinds, name, fns, lat, warm):
+def checked_call(svc, kernels, kinds, name, fns, lat, warm, replay=REPLAY_LAUNCHES):
     """One endpoint call through the service's program cache, then
     (uncounted) the same work eagerly; ``fns`` is (graph call, eager call).
     The kernels must have counted one replay's launches of each program in
     ``kinds``, and once more for each program the call captured (its
     warm-up run; the capture launches nothing); the answers must be
     bit-identical.  Appends the host seconds to ``lat[name]`` and counts the
-    call in ``warm[name]`` when it captured nothing."""
+    call in ``warm[name]`` when it captured nothing.  ``replay``: the
+    launches of one replay per kind (the sharded service's are the flat
+    ones times the shards)."""
     graph_fn, eager_fn = fns
     before = [k.launches for k in kernels]
     tally = dict(svc.compile_counts)
@@ -370,7 +393,7 @@ def checked_call(svc, kernels, kinds, name, fns, lat, warm):
     out = graph_fn()
     lat.setdefault(name, []).append(time.perf_counter() - t)
     new = {kind: svc.compile_counts.get(kind, 0) - tally.get(kind, 0) for kind in kinds}
-    want = tuple(sum(REPLAY_LAUNCHES[kind].get(k.__name__, 0) * (1 + new[kind])
+    want = tuple(sum(replay[kind].get(k.__name__, 0) * (1 + new[kind])
                      for kind in kinds) for k in kernels)
     delta = tuple(k.launches - b for k, b in zip(kernels, before))
     require(delta == want, (name, "launches", delta, "want", want, "captured", new))
@@ -422,11 +445,11 @@ def eager_endpoint(svc, kind, batch, engine="auto", max_df=None, k=None, max_buf
     return docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()
 
 
-def pinned(svc, fn):
+def pinned(svc, fn, window=MAX_BUF):
     """``fn`` as a call made with the service's Brute-L window pinned to
-    ``MAX_BUF``."""
+    ``window``."""
     def run():
-        svc.brute_window = MAX_BUF
+        svc.brute_window = window
         try:
             return fn()
         finally:
@@ -474,14 +497,14 @@ def graph_against_eager(svc, kernels, calls, label, rounds=3):
             f"max {e.max():.5f}; median ratio {np.median(e) / np.median(g):.2f}")
 
 
-def log_programs(svc, label):
+def log_programs(svc, label, replay=REPLAY_LAUNCHES):
     """compile_counts and each program's capture seconds, pool bytes and
     launches per replay; every program is a captured graph that launches
     its kind's kernels."""
     log(f"[{label}] compile_counts {svc.compile_counts}")
     for (kind, statics), prog in svc.compiled_programs().items():
         require(prog.graph is not None, (kind, statics, "not a captured graph"))
-        require(prog.launches == REPLAY_LAUNCHES[kind], (kind, statics, prog.launches))
+        require(prog.launches == replay[kind], (kind, statics, prog.launches))
         log(f"[{label}] program {kind} {statics}: capture {prog.capture_s:.4f} s, pool "
             f"{prog.pool_bytes} bytes, launches per replay {prog.launches}")
 
@@ -1026,7 +1049,7 @@ def phase_topk_tfidf(dev, kernels):
     plan_ranges = [(torch.from_numpy(pl["lo"]).to(dev), torch.from_numpy(pl["hi"]).to(dev))
                    for pl in plans]
     return launches, {"svc": svc, "ranges": plan_ranges, "term_ranges": term_ranges,
-                      "batches": batches}
+                      "batches": batches, "tf_queries": tf_queries}
 
 
 # ---------------------------------------------------------------------------
@@ -1087,7 +1110,7 @@ def answer_ids(mode, result):
     return [x[0] for x in result] if mode in ("topk", "tfidf") else list(result)
 
 
-def serve_counted(rt, svc, kernels, mode, reqs):
+def serve_counted(rt, svc, kernels, mode, reqs, replay=REPLAY_LAUNCHES):
     """One serve call; each batch it ran must launch one replay of each
     program of the mode (no capture, no other kernel).  Returns (answers,
     s)."""
@@ -1097,7 +1120,7 @@ def serve_counted(rt, svc, kernels, mode, reqs):
     answers = rt.serve(reqs)
     dt = time.perf_counter() - t
     nb = rt.metrics.batches - nb
-    want = tuple(nb * sum(REPLAY_LAUNCHES[kind].get(k.__name__, 0)
+    want = tuple(nb * sum(replay[kind].get(k.__name__, 0)
                           for kind in RUNTIME_KINDS[mode]) for k in kernels)
     delta = tuple(k.launches - b for k, b in zip(kernels, before))
     require(delta == want, ("runtime", mode, "launches", delta, "want", want))
@@ -3064,6 +3087,343 @@ def phase_baselines(svc, data, full_batches, large, lat, kernels):
     return launches, records
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the docs-sharded service over the collections of phases 2 and 2b
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+
+
+def sharded_replay(n_shards):
+    """Launches of one replay of each sharded program: the flat program's,
+    once per shard."""
+    return {kind: {k: n_shards * v for k, v in per.items()}
+            for kind, per in REPLAY_LAUNCHES.items()}
+
+
+def eager_sharded(ssvc, kind, batch, engine="auto", max_df=None, k=None, max_buf=None,
+                  conjunctive=False, max_terms=4):
+    """What a sharded endpoint computes, run eagerly (the program functions,
+    no cache) on the same padded batch with the Brute-L window of the
+    service's last call of that bucket, and the window's plan pass where
+    the window is automatic (``eager_endpoint``'s counterpart)."""
+    from repro_torch.serve import sharded as SH
+
+    bases = ssvc._bases()
+    if kind == "tfidf":
+        pats, lens = ssvc._pad_terms(batch, max_terms)
+        docs, scores = SH._sharded_tfidf_program(ssvc.coll.d, k, conjunctive, max_buf,
+                                                 ssvc.shards, bases, pats, lens)
+        return docs[:len(batch)].cpu().numpy(), scores[:len(batch)].cpu().numpy()
+    pats, lens, B = ssvc._pad_batch(batch)
+    knobs = ssvc._knobs(engine)
+
+    def plan_pass():
+        lo, hi, eng, occ, df = (x.cpu().numpy() for x in SH._sharded_plan_program(
+            ssvc.shards, pats, lens, *knobs))
+        return {"lo": lo[:, :B], "hi": hi[:, :B], "engine_shard": eng[:, :B], "occ": occ[:B],
+                "df": df[:B]}
+
+    if kind == "plan":
+        return plan_pass()
+    key = (tuple(pats.shape), max_df, max_buf) if kind == "list" else \
+        (tuple(pats.shape), k, max_buf)
+    if ssvc.brute_window is None:
+        plan_pass()
+        win = ssvc._brute_windows[(kind, key)]
+    else:
+        win = min(ssvc.brute_window, max_buf)
+    if kind == "list":
+        docs, cnt = SH._sharded_list_program(max_df, win, max_buf, ssvc.shards, bases, pats,
+                                             lens, *knobs)
+    else:
+        docs, cnt = SH._sharded_topk_program(k, ssvc._topk_max_df(max_buf), win, max_buf,
+                                             ssvc.shards, bases, pats, lens, *knobs)
+    return docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()
+
+
+def build_sharded(label, flat, dev, topk_index):
+    """The flat service's collection as ``SHARDS`` document shards on the
+    card (``RetrievalService.build(mesh=...)``), validated."""
+    from repro_torch.dist.sharding import make_docs_mesh
+    from repro_torch.serve.retrieval import RetrievalService
+
+    t0 = time.perf_counter()
+    ssvc = RetrievalService.build(flat.coll, mesh=make_docs_mesh(SHARDS, dev), block_size=64,
+                                  beta=16.0, topk_index=topk_index, device=dev)
+    log(f"[sharded] {label}: {SHARDS} shards of n = "
+        f"{[sh.coll.n for sh in ssvc.shards]}, d = {[sh.coll.d for sh in ssvc.shards]}, built "
+        f"in {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ssvc.build_seconds.items()) + "; per shard "
+        + "; ".join(", ".join(f"{k} {v:.2f}" for k, v in sh.build_seconds.items())
+                    for sh in ssvc.shards) + f"; flat build {sum(flat.build_seconds.values()):.2f} s")
+    require(len(ssvc.fingerprints) == SHARDS * len(flat.fingerprints), ssvc.fingerprints)
+    return ssvc
+
+
+def sharded_calls_8a(ssvc, flat, batch, max_df, buf):
+    """(sharded graph call, eager call, flat graph call) of each 8a case."""
+    calls = {
+        "plan": (lambda: ssvc.plan(batch), lambda: eager_sharded(ssvc, "plan", batch),
+                 lambda: flat.plan(batch)),
+        "count": (lambda: ssvc.count(batch), lambda: eager_sharded(ssvc, "plan", batch)["df"],
+                  lambda: flat.count(batch)),
+        "count[bogus]": (lambda: ssvc.count(batch, engine="bogus"),
+                         lambda: eager_sharded(ssvc, "plan", batch)["df"],
+                         lambda: flat.count(batch)),
+    }
+    for engine in ("auto", "ilcp", "brute", "pdl"):
+        calls[f"list_docs[{engine}]"] = (
+            lambda e=engine: ssvc.list_docs_arrays(batch, max_df=max_df, engine=e, max_buf=buf),
+            lambda e=engine: eager_sharded(ssvc, "list", batch, e, max_df, max_buf=buf),
+            lambda e=engine: flat.list_docs_arrays(batch, max_df=max_df, engine=e, max_buf=buf))
+    calls["list_docs[auto,pinned]"] = (
+        pinned(ssvc, lambda: ssvc.list_docs_arrays(batch, max_df=max_df, max_buf=buf), buf),
+        pinned(ssvc, lambda: eager_sharded(ssvc, "list", batch, "auto", max_df, max_buf=buf),
+               buf),
+        pinned(flat, lambda: flat.list_docs_arrays(batch, max_df=max_df, max_buf=buf), buf))
+    return calls
+
+
+def sharded_calls_8b(ssvc, flat, batch, queries):
+    """(sharded graph call, eager call, flat graph call) of each 8b case."""
+    calls = {}
+    for engine, pin in (("auto", False), ("brute", False), ("pdl", False), ("ilcp", False),
+                        ("auto", True)):
+        fns = (lambda e=engine: ssvc.topk_arrays(batch, k=TOPK_K, engine=e, max_buf=MAX_BUF),
+               lambda e=engine: eager_sharded(ssvc, "topk", batch, e, k=TOPK_K,
+                                              max_buf=MAX_BUF),
+               lambda e=engine: flat.topk_arrays(batch, k=TOPK_K, engine=e, max_buf=MAX_BUF))
+        if pin:
+            fns = tuple(pinned(svc, f) for svc, f in zip((ssvc, ssvc, flat), fns))
+        calls[f"topk[{engine}{',pinned' if pin else ''}]"] = fns
+    for conj in (False, True):
+        calls[f"tfidf[{'and' if conj else 'or'}]"] = (
+            lambda c=conj: ssvc.tfidf_arrays(queries, k=TOPK_K, conjunctive=c,
+                                             max_buf=TFIDF_MAX_BUF),
+            lambda c=conj: eager_sharded(ssvc, "tfidf", queries, k=TOPK_K, conjunctive=c,
+                                         max_buf=TFIDF_MAX_BUF),
+            lambda c=conj: flat.tfidf_arrays(queries, k=TOPK_K, conjunctive=c,
+                                             max_buf=TFIDF_MAX_BUF))
+    return calls
+
+
+#: the programs each phase-8 case runs (the count's plan included)
+SHARDED_KINDS = {"plan": ("plan",), "count": ("plan",), "count[bogus]": ("plan",),
+                 "list_docs[auto,pinned]": ("list",), "topk[auto,pinned]": ("topk",)}
+
+
+def sharded_kinds(name):
+    if name in SHARDED_KINDS:
+        return SHARDED_KINDS[name]
+    return ("tfidf",) if name.startswith("tfidf") else ("plan", name.split("[")[0][:4])
+
+
+def sharded_no_sync(ssvc_a, batch_a, max_df, buf, ssvc_b, batch_b, queries):
+    """Every sharded program run eagerly under ``set_sync_debug_mode("error")``:
+    any host sync inside one raises."""
+    from repro_torch.serve import sharded as SH
+
+    pats, lens, _ = ssvc_a._pad_batch(batch_a)
+    knobs = ssvc_a._knobs("auto")
+    tpats, tlens, _ = ssvc_b._pad_batch(batch_b)
+    tknobs = ssvc_b._knobs("auto")
+    qpats, qlens = ssvc_b._pad_terms(queries, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        SH._sharded_plan_program(ssvc_a.shards, pats, lens, *knobs)
+        SH._sharded_list_program(max_df, buf, buf, ssvc_a.shards, ssvc_a._bases(), pats, lens,
+                                 *knobs)
+        SH._sharded_topk_program(TOPK_K, ssvc_b._topk_max_df(MAX_BUF), MAX_BUF, MAX_BUF,
+                                 ssvc_b.shards, ssvc_b._bases(), tpats, tlens, *tknobs)
+        SH._sharded_tfidf_program(ssvc_b.coll.d, TOPK_K, False, TFIDF_MAX_BUF, ssvc_b.shards,
+                                  ssvc_b._bases(), qpats, qlens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[sharded] the plan, list, topk and tfidf programs (eager, every shard and the "
+        "merge): no host sync")
+
+
+def sharded_latency(cases, kernels, rounds=3):
+    """Per-batch host seconds of each endpoint through the sharded and the
+    flat service's graphs, in turns on the same batches (warm: nothing is
+    captured); logs both p50s and their ratio, then one warm ``list_docs``
+    and ``tfidf`` batch profiled on both sides (device ms, activities)."""
+    times = {}
+    with uncounted(kernels):
+        for _ in range(rounds):
+            for name, per_batch in cases.items():
+                t = times.setdefault(name, {"sharded": [], "flat": []})
+                for graph_fn, _, flat_fn in per_batch:
+                    for side, fn in (("flat", flat_fn), ("sharded", graph_fn)):
+                        t0 = time.perf_counter()
+                        fn()
+                        t[side].append(time.perf_counter() - t0)
+    for name, t in times.items():
+        s, f = np.median(t["sharded"]) * 1e3, np.median(t["flat"]) * 1e3
+        log(f"[sharded] {name} per batch of 32, p50 ms: sharded {s:.3f}, flat {f:.3f}, "
+            f"ratio {s / f:.2f}")
+    # where a batch's time goes: one warm last batch profiled on both sides
+    for name in ("8a list_docs[auto]", "8b tfidf[or]"):
+        graph_fn, _, flat_fn = cases[name][-1]
+        with uncounted(kernels):
+            for side, fn in (("sharded", graph_fn), ("flat", flat_fn)):
+                prof = profile_calls(fn, 1)
+                log(f"[sharded] {name} {side} profile, last batch: wall {prof['wall_ms']:.3f} "
+                    f"ms, device {prof['device_ms']} ms, {prof['kernels_per_call']:.0f} device "
+                    f"activities")
+
+
+def sharded_runtime(ssvc, batches, kernels, replay):
+    """A short clean ``ServeRuntime`` pass over the sharded service: two warm
+    passes, then each batch's answers full, equal to the direct endpoint
+    call, and one replay's launches per batch."""
+    from repro_torch.serve.runtime import RuntimeConfig, ServeRuntime
+
+    cfg = RuntimeConfig(max_batch=RUNTIME_BATCH, k=TOPK_K, max_df=min(256, ssvc.coll.d + 1),
+                        default_deadline_s=RUNTIME_DEADLINE_S)
+    rt = ServeRuntime(ssvc, cfg)
+    with uncounted(kernels):
+        for mode in ("list", "count"):
+            reqs = [[(mode, p) for p in b] for b in batches]
+            for _ in range(2):
+                for r in reqs:
+                    rt.serve(r, deadline_s=1e9)
+            lat = []
+            for r in reqs:
+                answers, dt = serve_counted(rt, ssvc, kernels, mode, r, replay)
+                lat.append(dt * 1e3)
+                require(all(a.path == "full" and not a.degraded and a.retries == 0
+                            and not a.deadline_missed for a in answers), ("sharded runtime", mode))
+                require([a.result for a in answers] == direct_answers(ssvc, cfg, mode,
+                                                                      [p for _, p in r]),
+                        ("sharded runtime", mode, "answer differs from the direct call"))
+            log(f"[sharded] runtime {mode}: {len(reqs)} batches of {RUNTIME_BATCH}, clean, p50 "
+                f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms")
+    m = rt.metrics
+    require(m.degraded == 0 and m.retries == 0 and m.failures == 0 and m.deadline_misses == 0,
+            ("sharded runtime", m.as_dict()))
+
+
+def tfidf_incremental_checks(tsvc, queries, pg):
+    """``tfidf_topk_incremental`` on the card against the same call on a CPU
+    copy of the index (the plain gather): equal documents and float64
+    scores, one PDL gather launch per term.  Returns the launches."""
+    from repro_torch.core.tfidf import tfidf_topk_incremental
+
+    with uncounted((pg,)):
+        plan = tsvc.plan([t for q in queries for t in q])
+    ranges = np.stack([plan["lo"], plan["hi"]], axis=1).reshape(len(queries), 2, 2)
+    cpu = [x.to("cpu") for x in (tsvc.pdl_topk, tsvc.csa, tsvc.sada)]
+    pg.launches = 0  # the incremental loop's run starts here
+    card_s, cpu_s = [], []
+    for conj in (False, True):
+        for r in ranges:
+            t0 = time.perf_counter()
+            got = tfidf_topk_incremental(tsvc.pdl_topk, tsvc.csa, tsvc.sada, r, TOPK_K, conj,
+                                         max_buf=TFIDF_MAX_BUF)
+            card_s.append(time.perf_counter() - t0)
+            with uncounted((pg,)):
+                t0 = time.perf_counter()
+                want = tfidf_topk_incremental(*cpu, r, TOPK_K, conj, max_buf=TFIDF_MAX_BUF)
+                cpu_s.append(time.perf_counter() - t0)
+            require(got == want and len(got[0]) > 0,
+                    ("tfidf_topk_incremental: card and CPU copy differ", conj, r.tolist()))
+    require(pg.launches == 2 * ranges.shape[0] * ranges.shape[1],
+            ("tfidf_topk_incremental launches", pg.launches))
+    log(f"[sharded] tfidf_topk_incremental: {len(ranges)} two-term queries, OR and AND, k = "
+        f"{TOPK_K}: documents and float64 scores equal to the CPU copy's; {pg.launches} PDL "
+        f"gather launches (one per term); seconds per query: card p50 "
+        f"{np.median(card_s):.4f}, CPU copy p50 {np.median(cpu_s):.4f}")
+    return {"pdl_gather": pg.launches}
+
+
+def phase_sharded(dev, full_svc, full_batches, topk, kernels):
+    """Phase 8: the docs-sharded service on the collections of phases 2 and
+    2b.  Returns the sharded path's and the incremental tf-idf's launches."""
+    import dataclasses
+
+    from repro_torch.errors import IndexIntegrityError
+    from repro_torch.serve.validate import validate_sharded_service
+
+    t_phase = time.perf_counter()
+    replay = sharded_replay(SHARDS)
+    tsvc, tbatches, tqueries = topk["svc"], topk["batches"], topk["tf_queries"]
+    ssvc_a = build_sharded("8a", full_svc, dev, topk_index=False)
+    ssvc_b = build_sharded("8b", tsvc, dev, topk_index=True)
+
+    # no truncation: every row is the whole answer, whatever the shard split
+    d = full_svc.coll.d
+    max_df = d + 1
+    with uncounted(kernels):
+        occ = max(int(full_svc.plan(b)["occ"].max()) for b in full_batches)
+    buf = max(MAX_BUF, 1 << (occ - 1).bit_length())
+    da = full_svc.da.cpu().numpy()
+    cases = {}
+    for b in full_batches:
+        for name, fns in sharded_calls_8a(ssvc_a, full_svc, b, max_df, buf).items():
+            cases.setdefault(("8a", name), []).append(fns)
+    for b, q in zip(tbatches, tqueries):
+        for name, fns in sharded_calls_8b(ssvc_b, tsvc, b, q).items():
+            cases.setdefault(("8b", name), []).append(fns)
+    with uncounted(kernels):  # the flat service's answers, outside the counted run
+        flat = {key: [f() for _, _, f in per] for key, per in cases.items()}
+        for bi, b in enumerate(full_batches):
+            plan = full_svc.plan(b)
+            for e in ("auto", "ilcp", "brute", "pdl"):
+                docs, cnt = flat[("8a", f"list_docs[{e}]")][bi]
+                check_listing(docs, cnt, plan["lo"], plan["hi"], da, max_df)  # whole rows
+
+    lat, warm = {}, {}
+    reset_counts(kernels)  # the sharded path's run starts here
+    for (label, name), per in cases.items():
+        ssvc = ssvc_a if label == "8a" else ssvc_b
+        for bi, (graph_fn, eager_fn, _) in enumerate(per):
+            out = checked_call(ssvc, kernels, sharded_kinds(name), f"{label} {name}",
+                               (graph_fn, eager_fn), lat, warm, replay)
+            want = flat[(label, name)][bi]
+            if name == "plan":
+                require(np.array_equal(out["occ"], want["occ"])
+                        and np.array_equal(out["df"], want["df"])
+                        and np.array_equal((out["hi"] - out["lo"]).sum(0), want["occ"]),
+                        (label, name, bi, "global occ/df differ from the flat service's"))
+            else:
+                require(same_bits(out, want),
+                        (label, name, bi, "differs from the flat service's answer"))
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
+    require(set(launches) == {"backward_search", "ilcp_list", "pdl_gather"}, launches)
+    require(all(n > 0 for n in warm.values()), ("a sharded endpoint made no warm call", warm))
+    log(f"[sharded] {len(full_batches)} + {len(tbatches)} batches of 32 (8a: max_df {max_df}, "
+        f"max_buf {buf}; 8b: k {TOPK_K}, max_buf {MAX_BUF} / {TFIDF_MAX_BUF}), every answer "
+        f"equal to the flat service's, tf-idf scores bit for bit; launches {launches} (no "
+        f"rank, no RMQ); warm calls {warm}")
+    for label, ssvc in (("8a", ssvc_a), ("8b", ssvc_b)):
+        log_programs(ssvc, f"sharded {label}", replay)
+        per_kind = {}
+        for kind, _ in ssvc.compiled_programs():
+            per_kind[kind] = per_kind.get(kind, 0) + 1
+        require(per_kind == ssvc.compile_counts, (label, "not one capture per bucket",
+                                                  per_kind, ssvc.compile_counts))
+    sharded_no_sync(ssvc_a, full_batches[0], max_df, buf, ssvc_b, tbatches[0], tqueries[0])
+    sharded_latency({f"{label} {name}": per for (label, name), per in cases.items()}, kernels)
+
+    log(f"[sharded] validate_sharded_service: 8a {ssvc_a.build_seconds['validate']:.3f} s, "
+        f"8b {ssvc_b.build_seconds['validate']:.3f} s")
+    shards = list(ssvc_a.shards)
+    shards[1] = dataclasses.replace(shards[1], da=torch.full_like(shards[1].da, d + 9))
+    try:
+        validate_sharded_service(dataclasses.replace(ssvc_a, shards=shards))
+        require(False, "a tampered shard passed validate_sharded_service")
+    except IndexIntegrityError as e:
+        log(f"[sharded] tampered shard 1: IndexIntegrityError({e})")
+    sharded_runtime(ssvc_a, full_batches, kernels, replay)
+    incremental = tfidf_incremental_checks(tsvc, tqueries[0], kernels[2])
+    log(f"[sharded] phase body {time.perf_counter() - t_phase:.1f} s")
+    return launches, incremental
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU",
@@ -3142,6 +3502,10 @@ def main() -> int:
         "and to the host replay (phase 4)")
     baseline_s = time.perf_counter() - t0
     log(f"[baselines] phase {baseline_s:.1f} s")
+    t0 = time.perf_counter()
+    paths["sharded"], paths["tfidf_incremental"] = phase_sharded(
+        dev, svc, full_batches, topk, (backward_search, ilcp_list, pdl_gather, rank, rmq))
+    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
     del svc, full_batches, large, topk, full_data
     free_device_memory()
     t0 = time.perf_counter()

@@ -88,6 +88,40 @@ def concat_documents(docs: Sequence) -> Collection:
     )
 
 
+def subcollection(coll: Collection, dlo: int, dhi: int) -> Collection:
+    """The contiguous document slice ``[dlo, dhi)`` of ``coll`` as its own
+    Collection, the unit a docs-axis shard indexes.
+
+    The slice keeps the parent's global ``sigma``, so every shard's wavelet
+    matrix has the same levels and a pattern encodes the same against
+    every shard.  Each document ends in its own terminator and patterns
+    never hold it, so a pattern's occurrences inside documents
+    ``[dlo, dhi)`` are exactly its occurrences inside the slice."""
+    if not (0 <= dlo <= dhi <= coll.d):
+        raise ValueError(f"document slice [{dlo}, {dhi}) out of range for d={coll.d}")
+    if dlo == dhi:
+        return Collection(text=np.zeros(0, dtype=np.int32),
+                          doc_starts=np.zeros(0, dtype=np.int32),
+                          doc_ends=np.zeros(0, dtype=np.int32), d=0, sigma=coll.sigma)
+    base = int(coll.doc_starts[dlo])
+    stop = int(coll.doc_ends[dhi - 1]) + 1  # the last terminator too
+    return Collection(
+        text=np.ascontiguousarray(coll.text[base:stop]),
+        doc_starts=(coll.doc_starts[dlo:dhi] - base).astype(np.int32),
+        doc_ends=(coll.doc_ends[dlo:dhi] - base).astype(np.int32),
+        d=dhi - dlo,
+        sigma=coll.sigma,
+    )
+
+
+def encode_pattern(pattern) -> np.ndarray:
+    """A query pattern in symbol space, mapped as ``concat_documents`` maps
+    documents (strings byte-wise + 1, integers + 1)."""
+    if isinstance(pattern, str):
+        return np.frombuffer(pattern.encode("utf-8"), dtype=np.uint8).astype(np.int32) + 1
+    return np.asarray(pattern, dtype=np.int32) + 1
+
+
 # ---------------------------------------------------------------------------
 # Prefix-doubling suffix array (device) + retained rank tables
 # ---------------------------------------------------------------------------
@@ -265,3 +299,23 @@ def sa_range_for_pattern(data: SuffixData, pattern) -> tuple[int, int]:
     """[lo, hi) SA range of the suffixes prefixed by ``pattern`` (symbol
     space), by binary search on the suffix array on the host."""
     return _sa_range(data.coll.text, data.sa.cpu().numpy(), pattern)
+
+
+# ---------------------------------------------------------------------------
+# Naive oracles (tests and small-scale validation)
+# ---------------------------------------------------------------------------
+
+
+def naive_suffix_array(coll: Collection) -> np.ndarray:
+    """O(n^2 log n) oracle: plain suffix comparison of T (shared $)."""
+    text = coll.text
+    return np.asarray(sorted(range(coll.n), key=lambda i: tuple(text[i:])), dtype=np.int32)
+
+
+def naive_lcp_of(coll: Collection, a: int, b: int) -> int:
+    """Character LCP of the suffixes at text positions a and b."""
+    text = coll.text
+    h = 0
+    while a + h < coll.n and b + h < coll.n and text[a + h] == text[b + h]:
+        h += 1
+    return h

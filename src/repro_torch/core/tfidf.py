@@ -10,16 +10,23 @@ out as [Q, T] directly.  Scores fold term-major in slot order in float32,
 a multiply then an add per term (two separate elementwise kernels, so no
 fused multiply-add), which makes a document's score depend only on its own
 tf values and the weights.
+
+``tfidf_topk`` is the batched engine over a batch of one.
+``tfidf_topk_incremental`` is the paper's k' = 2k, 4k, ... loop with lower
+and upper score bounds and an early stop, orchestrated on the host over one
+``pdl_topk`` extraction per term; its weights are float64 ``np.log2`` on
+the host, so its scores are the reference's exactly.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.common import BIG, IDX, lexsort_rows
+from repro_torch.common import BIG, IDX, as_i32, lexsort_rows
 from repro_torch.core.csa import CSA, csa_search_planned
-from repro_torch.core.pdl import PDLIndex, pdl_doc_freqs_batch
-from repro_torch.core.sada import SadaCount, sada_count_batch
+from repro_torch.core.pdl import PDLIndex, pdl_doc_freqs_batch, pdl_topk
+from repro_torch.core.sada import SadaCount, sada_count, sada_count_batch
 
 
 def idf_weight(d: int, df):
@@ -44,10 +51,17 @@ def rank_topk_scores(docs, scores, ok, k: int):
 
 
 def tfidf_topk_batch(pdl: PDLIndex, csa: CSA, sada: SadaCount, ranges, term_valid,
-                     k: int, conjunctive: bool, max_buf: int = 2048):
+                     k: int, conjunctive: bool, max_buf: int = 2048, dfs_batch=None,
+                     n_docs: int | None = None):
     """Exact ranked-AND / ranked-OR top-k over a [Q, T] batch of term ranges
     (``ranges`` int32[Q, T, 2], empty terms lo >= hi; ``term_valid``
-    bool[Q, T]): (docs int32[Q, k] padded -1, scores float32[Q, k])."""
+    bool[Q, T]): (docs int32[Q, k] padded -1, scores float32[Q, k]).
+
+    ``dfs_batch`` (int32[Q, T]) and ``n_docs`` override the df and the
+    document count of the idf weight, which default to this index's own
+    Sada counts and ``pdl.d``: the sharded engine injects the collection's
+    global statistics, so a shard scores a document with the float the
+    whole collection's index gives it."""
     Q, T, _ = ranges.shape
     dev = ranges.device
     lo = ranges[..., 0].reshape(-1).contiguous()
@@ -58,7 +72,8 @@ def tfidf_topk_batch(pdl: PDLIndex, csa: CSA, sada: SadaCount, ranges, term_vali
     # rows stay ascending: the invalid tails are INT32_MAX
     docs = torch.where(keep, docs, BIG).reshape(Q, T, max_buf)
     tf = torch.where(keep, tf, 0).reshape(Q, T, max_buf)
-    w = idf_weight(pdl.d, sada_count_batch(sada, lo, hi)).reshape(Q, T)
+    dfs = sada_count_batch(sada, lo, hi) if dfs_batch is None else dfs_batch.reshape(-1)
+    w = idf_weight(pdl.d if n_docs is None else n_docs, dfs).reshape(Q, T)
 
     # candidates: each distinct document of a query's term lists once
     s_docs = torch.sort(docs.reshape(Q, T * max_buf), dim=1).values
@@ -92,3 +107,86 @@ def term_ranges_batch(csa: CSA, patterns, lengths):
     lo, hi = csa_search_planned(csa, patterns.reshape(Q * T, m), lengths.reshape(-1))
     hi = torch.where(lengths.reshape(-1) > 0, hi, lo)
     return torch.stack([lo, hi], dim=-1).reshape(Q, T, 2), lengths > 0
+
+
+def tfidf_topk(pdl: PDLIndex, csa: CSA, sada: SadaCount, ranges, term_valid, k: int,
+               conjunctive: bool, max_buf: int = 2048, dfs=None, n_docs: int | None = None):
+    """One query's exact ranked-AND / ranked-OR top-k (``ranges`` [T, 2],
+    ``term_valid`` [T], optional ``dfs`` [T]): ``tfidf_topk_batch`` over a
+    batch of one, (docs int32[k] padded -1, scores float32[k])."""
+    dev = csa.device
+    ranges = as_i32(ranges, dev)[None]
+    term_valid = torch.as_tensor(term_valid, dtype=torch.bool, device=dev)[None]
+    dfs = None if dfs is None else as_i32(dfs, dev)[None]
+    docs, scores = tfidf_topk_batch(pdl, csa, sada, ranges, term_valid, k, conjunctive,
+                                    max_buf, dfs_batch=dfs, n_docs=n_docs)
+    return docs[0], scores[0]
+
+
+# ---------------------------------------------------------------------------
+# The paper's incremental algorithm (Section 6.5's numbered loop)
+# ---------------------------------------------------------------------------
+
+
+def tfidf_topk_incremental(pdl: PDLIndex, csa: CSA, sada: SadaCount, ranges, k: int,
+                           conjunctive: bool, max_buf: int = 2048):
+    """Host-orchestrated k' doubling with score bounds (steps 1-6 of
+    Section 6.5): extract k' documents per term from its tf-sorted list,
+    keep lower and upper bounds on w(D, Q), and stop once the top-k set
+    cannot change.  ``ranges`` is a host [T, 2] array.  Returns (docs
+    list, lower-bound scores list); the weights are float64 on the host.
+
+    Each term's list comes from one ``pdl_topk`` call (one PDL gather
+    launch on the card); the loop reads its prefixes, and the conjunctive
+    filter checks membership against the complete lists."""
+    T = len(ranges)
+    d = pdl.d
+    dfs = [int(sada_count(sada, int(lo), int(hi))) for lo, hi in ranges]
+    gs = [float(np.log2(d / max(df, 1))) for df in dfs]
+
+    full: list[tuple[np.ndarray, np.ndarray]] = []
+    full_maps: list[dict[int, int]] = []
+    for lo, hi in ranges:
+        docs, tf = pdl_topk(pdl, csa, int(lo), int(hi), min(max_buf, pdl.d))
+        docs, tf = docs.cpu().numpy(), tf.cpu().numpy()
+        keep = docs >= 0
+        full.append((docs[keep], tf[keep]))
+        full_maps.append({int(a): int(b) for a, b in zip(docs[keep], tf[keep])})
+
+    kp = 2 * k
+    while True:
+        # step 1: k' documents per term
+        prefix: dict[int, dict[int, int]] = {}
+        next_tf = []
+        for t in range(T):
+            docs, tf = full[t]
+            head = min(kp, len(docs))
+            for j in range(head):
+                prefix.setdefault(int(docs[j]), {})[t] = int(tf[j])
+            next_tf.append(int(tf[head]) if head < len(docs) else 0)
+
+        # steps 3-4: lower and upper bounds of every extracted document
+        lower, upper = {}, {}
+        for doc, seen in prefix.items():
+            lower[doc] = sum(seen.get(t, 0) * gs[t] for t in range(T))
+            upper[doc] = sum((seen[t] if t in seen else next_tf[t]) * gs[t] for t in range(T))
+
+        # step 2: the conjunctive filter against the complete lists
+        if conjunctive:
+            cand = {doc: w for doc, w in lower.items()
+                    if all(doc in full_maps[t] for t in range(T))}
+        else:
+            cand = lower
+
+        ranked = sorted(cand.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+        if all(kp >= len(full[t][0]) for t in range(T)):
+            return [doc for doc, _ in ranked], [w for _, w in ranked]
+
+        # steps 5-6: stop when the top-k set cannot change
+        kth = ranked[k - 1][1] if len(ranked) >= k else -np.inf
+        unseen_upper = sum(next_tf[t] * gs[t] for t in range(T))
+        top_set = {doc for doc, _ in ranked}
+        seen_safe = all(upper[doc] <= kth for doc in cand if doc not in top_set)
+        if len(ranked) >= k and unseen_upper <= kth and seen_safe:
+            return [doc for doc, _ in ranked], [w for _, w in ranked]
+        kp *= 2

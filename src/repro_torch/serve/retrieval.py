@@ -41,8 +41,9 @@ degradation rung and the parity oracle of the batched path: eager, per
 query, on the service's device, through the same kernel wrappers (one
 backward search per batch, one listing or gather launch per query), with
 no program and no fault hook.  ``build`` validates the index by default
-(``repro_torch.serve.validate``) and stores its fingerprints.  Not in
-this port yet: sharding (``mesh``).
+(``repro_torch.serve.validate``) and stores its fingerprints.
+``build(mesh=...)`` builds the docs-sharded service
+(``repro_torch.serve.sharded``).
 """
 
 from __future__ import annotations
@@ -284,7 +285,7 @@ class RetrievalService:
         cls, coll: Collection, block_size: int = 64, beta: float = 16.0,
         sada_variant: str = "sparse", sample_rate: int = 16,
         brute_window: int | None = None, topk_index: bool = True,
-        validate: bool = True, device="cuda",
+        validate: bool = True, device="cuda", mesh=None,
     ):
         """Build the index stack on ``device`` (the card unless the caller
         asks for the CPU).  Queries go through the kernel wrappers, which
@@ -296,7 +297,20 @@ class RetrievalService:
         build grows faster than n (PERF.md, section 5).  ``validate=True``
         checks every structure's invariants and stores the fingerprints
         (``repro_torch.serve.validate``): a corrupted index raises
-        ``IndexIntegrityError`` here, before it can serve."""
+        ``IndexIntegrityError`` here, before it can serve.
+
+        ``mesh`` (``repro_torch.dist.sharding.make_docs_mesh``) builds the
+        docs-sharded service instead: contiguous document shards, each
+        with its own stack, merged exactly
+        (``repro_torch.serve.sharded.ShardedRetrievalService``)."""
+        if mesh is not None:
+            from repro_torch.serve.sharded import ShardedRetrievalService
+
+            return ShardedRetrievalService.build(
+                coll, mesh, block_size=block_size, beta=beta, sada_variant=sada_variant,
+                sample_rate=sample_rate, brute_window=brute_window, topk_index=topk_index,
+                validate=validate, device=device,
+            )
         dev = resolve_device(device)
         seconds = {}
 
@@ -429,10 +443,11 @@ class RetrievalService:
     def count(self, patterns, engine: str = "auto"):
         """df per pattern (Sadakane counting).  ``engine="reference"``
         computes the same counts through the per-query path, the
-        runtime's last-resort degradation."""
+        runtime's last-resort degradation.  Any other engine name is
+        ignored, as the reference ignores it: df does not depend on it."""
         if engine.startswith("reference"):
             return self._ranges_dfs(patterns)[2]
-        return self.plan(patterns, engine)["df"]
+        return self.plan(patterns)["df"]
 
     def count_ilcp(self, patterns):
         """df per pattern by ILCP counting (Fig 3), a cross-check of

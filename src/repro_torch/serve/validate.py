@@ -30,7 +30,9 @@ on the index's device.  ``fingerprint_service`` checksums every tensor
 objects, skipping integer metadata), so a load path can detect bit-level
 corruption that keeps every invariant; the checksums of ``csa``, ``ilcp``,
 ``pdl_list``, ``pdl_topk``, ``sada`` (every variant) and ``da`` equal the
-reference's.  The sharded service's validation is not ported yet.
+reference's.  ``validate_sharded_service`` validates every shard's stack
+and the partition the sharded merge assumes, with fingerprints keyed
+``shard{s}:{structure}``.
 """
 
 from __future__ import annotations
@@ -353,3 +355,39 @@ def validate_service(svc) -> dict:
     _req(da.size == 0 or (0 <= da.min() and da.max() < svc.coll.d), "da",
          "document-array entry out of [0, d)")
     return fingerprint_service(svc)
+
+
+def validate_sharded_service(svc) -> dict:
+    """Validate a ShardedRetrievalService: every shard's index stack passes
+    the full structural validation, and the shards partition the
+    collection as the merge algebra assumes.  Returns fingerprints keyed
+    ``shard{s}:{structure}``."""
+    S = svc.n_shards
+    _req(S >= 1, "shards", "no shards")
+    _req(len(svc.doc_bases) == S, "shards", "doc_bases length != n_shards")
+    _req(int(svc.doc_bases[0]) == 0, "shards", "first shard not at doc 0")
+    _req((np.diff(np.asarray(svc.doc_bases)) > 0).all() if S > 1 else True,
+         "shards", "doc_bases not strictly increasing")
+    total_d = 0
+    total_n = 0
+    fps = {}
+    for s, shard in enumerate(svc.shards):
+        dlo, dhi = svc.shard_doc_range(s)
+        _req(shard.coll.d == dhi - dlo, f"shard{s}", "shard document count != owned range")
+        _req(shard.coll.d >= 1, f"shard{s}", "empty shard (zero documents)")
+        _req(shard.coll.sigma == svc.coll.sigma, f"shard{s}",
+             "shard sigma != global sigma (wavelet levels would diverge)")
+        # the shard's text must be the exact slice it claims to own
+        base = int(svc.coll.doc_starts[dlo])
+        _req(np.array_equal(_np(shard.coll.text),
+                            _np(svc.coll.text)[base:base + shard.coll.n]), f"shard{s}",
+             "shard text != collection slice")
+        for fp_name, fp in validate_service(shard).items():
+            fps[f"shard{s}:{fp_name}"] = fp
+        total_d += shard.coll.d
+        total_n += shard.coll.n
+    _req(total_d == svc.coll.d, "shards",
+         f"shard documents sum to {total_d}, collection has {svc.coll.d}")
+    _req(total_n == svc.coll.n, "shards",
+         f"shard texts sum to {total_n} symbols, collection has {svc.coll.n}")
+    return fps

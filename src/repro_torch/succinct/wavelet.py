@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import IDX, TensorDataclass, ceil_log2, rank1_words, u32
+from repro_torch.common import IDX, TensorDataclass, batch_of_one, ceil_log2, rank1_words, u32
 from repro_torch.kernels.rank import rank
 from repro_torch.succinct.bitvector import plain_from_bits
 
@@ -120,6 +120,24 @@ def wm_rank_pair_batch(wm: WaveletMatrix, c, lo, hi):
         hi = torch.where(bit == 0, hi - r1q, z + r1q)
     start = wm.sym_starts[c]
     return (lo - start).to(IDX), (hi - start).to(IDX)
+
+
+def wm_rank_pair(wm: WaveletMatrix, c, lo, hi):
+    """(rank_c(S, lo), rank_c(S, hi)) for one symbol and two positions
+    (ints or one-element tensors): ``wm_rank_pair_batch`` over a batch of
+    one, as 0-d int32 tensors."""
+    dev = wm.words.device
+    a, b = wm_rank_pair_batch(wm, batch_of_one(c, dev), batch_of_one(lo, dev),
+                              batch_of_one(hi, dev))
+    return a[0], b[0]
+
+
+def wm_symbol_range(wm: WaveletMatrix, c, lo, hi):
+    """Occurrence-rank interval (a, b) of symbol c within S[lo, hi): its
+    occurrences there are the a-th .. (b-1)-th of c in the whole sequence
+    (the skewed-tree counting of Section 3.4).  Both ends are the ranks of
+    ``wm_rank_pair``."""
+    return wm_rank_pair(wm, c, lo, hi)
 
 
 def wm_access(wm: WaveletMatrix, i):
