@@ -157,6 +157,21 @@ Phases (any failure exits non-zero; nothing is caught):
    Then ``tfidf_topk_incremental`` on 32 two-term queries of phase 2b's
    flat service (or, and): documents and scores equal to the same call
    on a CPU copy of the index, one PDL gather launch per term.
+9. The analysis gate (after phase 8, on phase 2's service, under a
+   minute): ``audit_service`` and ``audit_sharded_service``
+   (``repro_torch.analysis.contracts``) on the gate's audit collection,
+   flat and as 4 shards on the card, at buckets (1, 8) and (8, 8), and
+   ``audit_service`` on phase 2's service at (32, 8) with its ``max_df``
+   and ``max_buf`` (``plan`` and ``list``: no top-k PDL there).  Every
+   program runs once recorded and is captured into a debug-mode CUDA
+   graph: every contract clean, the graph's kernel nodes of the port's
+   kernels equal to the recorded calls, each program's nodes printed, and
+   those of phase 2's ``list`` program at its automatic Brute-L window
+   beside the audited pinned one.  A seeded contract (two backward
+   searches per ``plan``) must give exactly one ``launches`` violation, a
+   ``plan`` program with a second, unrecorded backward search exactly one
+   ``graph_kernels`` violation, and ``python -m repro_torch.analysis`` as
+   a subprocess must exit 0.
 
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -178,6 +193,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3424,6 +3440,128 @@ def phase_sharded(dev, full_svc, full_batches, topk, kernels):
     return launches, incremental
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the analysis gate
+# ---------------------------------------------------------------------------
+
+AUDIT_BUCKETS = ((1, 8), (8, 8))   # the gate's own, on its audit collection
+ANALYSIS_CLI_ARGS = ()             # extra flags of the gate's CLI run
+
+
+def log_audit(label, report):
+    """Each audited program's recorded launches and graph nodes."""
+    for e in report["endpoints"]:
+        g = e["graph_nodes"]
+        nodes = (f"nodes {g['total']} (kernel {g['kernel']}, memcpy/memset "
+                 f"{g['memcpy_memset']})" if g else "no graph")
+        log(f"[analysis] {label} {e['contract']}: launches {e['launches']}, {nodes}, "
+            f"outputs {'/'.join(sorted(set(e['output_dtypes'])))}")
+
+
+def require_clean(label, report, violations, n, dev):
+    """No violation, ``n`` programs audited, each with a graph on the card
+    whose kernel nodes of the port's kernels equal the recorded calls (the
+    audit's ``graph_kernels`` check; restated here)."""
+    require(not violations, (label, [v.as_dict() for v in violations]))
+    require(report["contracts_audited"] == n, (label, report["contracts_audited"]))
+    for e in report["endpoints"]:
+        g = e["graph_nodes"]
+        require(g is not None or dev.type == "cpu", (label, e["contract"], "no graph"))
+        if g is not None:
+            ours = {k[: -len("_kernel")]: c for k, c in g["kernels"].items()
+                    if k[: -len("_kernel")] in e["expected_launches"]}
+            require(ours == e["launches"] == e["expected_launches"],
+                    (label, e["contract"], ours, e["launches"]))
+
+
+def phase_analysis(full_svc):
+    """Phase 9: ``repro_torch.analysis`` on the card.  (a) Its audit
+    collection, flat and as 4 shards, at the gate's buckets; (b) phase 2's
+    service at its batches' bucket and settings, the automatic window's
+    ``list`` program beside the audited pinned one; (c) a seeded contract
+    violation; (d) the gate's CLI as a subprocess."""
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.programs import trace_program
+    from repro_torch.analysis.report import build_audit_services
+    from repro_torch.serve.retrieval import BRUTE_WINDOW_FLOOR
+
+    t_phase = time.perf_counter()
+    dev = full_svc.device
+    mode = torch.cuda.get_sync_debug_mode()
+    flat, sharded = build_audit_services(dev)
+    for label, svc, audit in (("flat", flat, contracts.audit_service),
+                              ("sharded", sharded, contracts.audit_sharded_service)):
+        report, violations = audit(svc, buckets=AUDIT_BUCKETS)
+        require_clean(f"audit {label}", report, violations, 4 * len(AUDIT_BUCKETS), dev)
+        log_audit(f"audit collection {label}", report)
+    require(torch.cuda.get_sync_debug_mode() == mode, "the audit left the sync debug mode set")
+
+    bucket = (32, 8)  # phase 2's batches: 32 patterns of length 6
+    report, violations = contracts.audit_service(full_svc, buckets=(bucket,), max_df=MAX_DF,
+                                                 max_buf=MAX_BUF)
+    require_clean("phase 2", report, violations, 2, dev)
+    log_audit(f"phase 2 (n={full_svc.coll.n}, max_df {MAX_DF}, max_buf {MAX_BUF})", report)
+    nodes = {e["contract"].split("/")[0]: e["graph_nodes"] for e in report["endpoints"]}
+    win = full_svc._brute_windows.get(("list", (bucket, MAX_DF, MAX_BUF)))
+    if win is not None and nodes["list"] is not None:
+        auto = trace_program("list", bucket, full_svc._list_fn(MAX_DF, win, MAX_BUF),
+                             full_svc._audit_batch(*bucket)).graph
+        require(auto.kernels.get("backward_search_kernel") == 1, auto.kernels)
+        log(f"[analysis] phase 2 list program at the automatic window {win} (pinned: "
+            f"{min(BRUTE_WINDOW_FLOOR, MAX_BUF)}): nodes {auto.total} (kernel {auto.kernel_nodes}, "
+            f"memcpy/memset {auto.copies}); a warm list_docs[auto] batch replays it and the "
+            f"plan graph ({nodes['plan']['total']} nodes): {auto.total + nodes['plan']['total']}"
+            f" nodes, against the pinned program's {nodes['list']['total']}")
+
+    trace = full_svc.trace_endpoint("plan", *bucket)
+    good = contracts.build_registry(full_svc, (bucket,))[0]
+    bad = contracts.EndpointContract("plan", bucket, dev.type,
+                                     {**good.launches, "backward_search": 2})
+    seeded = contracts.audit_trace(trace, bad)
+    require([v.check for v in seeded] == ["launches"], [v.as_dict() for v in seeded])
+    require(not contracts.audit_trace(trace, good), "the true contract failed")
+    log(f"[analysis] seeded contract (2 backward searches per plan): {seeded[0].message}")
+    # a launch no wrapper recorded: the second search of this program runs
+    # with the recorder of its wrapper silenced, so only the graph shows it
+    import repro_torch.kernels.backward_search as bs_mod
+
+    fn, args = full_svc.endpoint_program("plan")
+
+    def uncounted_search(*a):
+        out = fn(*a)
+        bs_mod.record = lambda *_: None
+        try:
+            fn(*a)
+        finally:
+            bs_mod.record = record
+        return out
+
+    record = bs_mod.record
+    hidden = contracts.audit_trace(
+        trace_program("plan", bucket, uncounted_search, args(*bucket)), good)
+    require([v.check for v in hidden] == (["graph_kernels"] if dev.type == "cuda" else []),
+            [v.as_dict() for v in hidden])
+    if hidden:
+        log(f"[analysis] seeded unrecorded launch: {hidden[0].message}")
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "analysis.json")
+        cmd = [sys.executable, "-m", "repro_torch.analysis", "--report", path,
+               *ANALYSIS_CLI_ARGS]
+        t = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=300)
+        require(out.returncode == 0, (cmd, out.returncode, out.stderr[-3000:]))
+        with open(path) as f:
+            cli = json.load(f)
+    require(cli["ok"] and cli["contracts"]["contracts_audited"] == 8
+            and cli["contracts_sharded"]["contracts_audited"] == 8, cli.get("ok"))
+    log(f"[analysis] python -m repro_torch.analysis: exit 0 in "
+        f"{time.perf_counter() - t:.1f} s; {out.stdout.strip()}")
+    log(f"[analysis] phase body {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU",
@@ -3506,6 +3644,9 @@ def main() -> int:
     paths["sharded"], paths["tfidf_incremental"] = phase_sharded(
         dev, svc, full_batches, topk, (backward_search, ilcp_list, pdl_gather, rank, rmq))
     log(f"[sharded] phase {time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
+    t0 = time.perf_counter()
+    phase_analysis(svc)
+    log(f"[analysis] phase {time.perf_counter() - t0:.1f} s")
     del svc, full_batches, large, topk, full_data
     free_device_memory()
     t0 = time.perf_counter()

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.common import IDX, rank1_words
 from repro_torch.kernels import _build
+from repro_torch.kernels._record import record
 
 
 def reverse_patterns(patterns: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -67,6 +68,8 @@ def backward_search(words, ones_prefix, zcount, base, patterns, lengths, *,
     """
     B, max_m = patterns.shape
     dev = patterns.device
+    if B:  # B == 0 has a closed-form empty answer on the card
+        record("backward_search", words, ones_prefix, zcount, base, patterns, lengths)
     if dev.type != "cuda":
         return backward_search_plain(
             words, ones_prefix, zcount, base,

@@ -26,7 +26,7 @@ MODES = ("sum", "mean")
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_mode(mode):
+def _check_mode(*, mode):
     if mode not in MODES:
         raise ValueError(f"embedding_bag: mode must be one of {MODES}, got {mode!r}")
 
@@ -34,7 +34,7 @@ def _check_mode(mode):
 def embedding_bag_plain(table, padded_idx, *, mode="sum"):
     """Plain PyTorch version (the semantics of ``ref.embedding_bag_ref`` on
     the padded layout): [B, D] in the table's dtype."""
-    _check_mode(mode)
+    _check_mode(mode=mode)
     B, L = padded_idx.shape
     valid = padded_idx >= 0
     safe = padded_idx.clamp(min=0).long()
@@ -53,7 +53,7 @@ def embedding_bag(table, padded_idx, *, mode="sum"):
     On CUDA tensors this launches the kernel (counted in
     ``embedding_bag.launches``); on CPU tensors it runs the plain version.
     An empty output (``B == 0`` or ``D == 0``) launches nothing."""
-    _check_mode(mode)
+    _check_mode(mode=mode)
     dev = padded_idx.device
     if dev.type != "cuda":
         return embedding_bag_plain(table, padded_idx, mode=mode)

@@ -42,7 +42,7 @@ ROUTES = ("hopper", "simt")
 TMA_ALIGN = 16
 
 
-def _check_shapes(q, k, v, causal):
+def _check_shapes(q, k, v, *, causal):
     """Shapes shared by both versions; raises ValueError."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, H, S, Dh]")
@@ -66,7 +66,7 @@ def flash_attention_plain(q, k, v, *, causal=True, q_block=1024):
     product, ``-inf`` outside the causal mask, softmax, f32 PV, one cast to
     q's dtype.  Blockwise over ``q_block`` query rows, so that the
     [q_block, S_kv] score tiles fit for long sequences."""
-    _check_shapes(q, k, v, causal)
+    _check_shapes(q, k, v, causal=causal)
     B, H, S_q, Dh = q.shape
     H_kv, S_kv = k.shape[1], k.shape[2]
     rep = H // H_kv
@@ -132,7 +132,7 @@ def flash_attention(q, k, v, *, causal=True, route=None):
     dev = q.device
     if dev.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal)
-    _check_shapes(q, k, v, causal)
+    _check_shapes(q, k, v, causal=causal)
     _build.check_operand("q", q, 4, dev, dtypes=DTYPES, inner_contiguous=True)
     for name, t in (("k", k), ("v", v)):
         _build.check_operand(name, t, 4, dev, dtypes=(q.dtype,), inner_contiguous=True)

@@ -22,6 +22,7 @@ import torch
 from repro_torch.common import IDX, searchsorted_i32
 from repro_torch.core.csa import CSA, doc_at
 from repro_torch.kernels import _build
+from repro_torch.kernels._record import record
 from repro_torch.kernels.csa_view import check_csa_operands
 from repro_torch.kernels.rmq import rmq_plain
 
@@ -146,6 +147,7 @@ def ilcp_list(vilcp, table, run_starts, da, lo, hi, *, d: int, max_df: int):
     if B == 0 or max_df <= 0 or d <= 0:
         return (torch.full((B, max(max_df, 0)), -1, dtype=IDX, device=dev),
                 torch.zeros(B, dtype=IDX, device=dev))
+    record("ilcp_list", vilcp, table, run_starts, da, lo, hi)
     if dev.type != "cuda":
         return ilcp_list_plain(vilcp, table, run_starts, da, lo, hi,
                                runs_of(run_starts, lo), runs_of(run_starts, hi - 1),

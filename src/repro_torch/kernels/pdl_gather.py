@@ -29,6 +29,7 @@ import torch
 from repro_torch.common import IDX, searchsorted_i32
 from repro_torch.core.csa import CSA, csa_doc_of, csa_lookup
 from repro_torch.kernels import _build
+from repro_torch.kernels._record import record
 from repro_torch.kernels.csa_view import csa_operands
 
 if TYPE_CHECKING:
@@ -231,6 +232,7 @@ def pdl_gather(index: PDLIndex, csa: CSA, lo, hi, max_buf: int, max_cover: int):
     if B == 0:
         empty = torch.zeros((0, max_buf), dtype=IDX, device=dev)
         return empty, empty.clone(), torch.zeros(0, dtype=IDX, device=dev)
+    record("pdl_gather", index, csa, lo, hi)
     if dev.type != "cuda":
         return pdl_gather_plain(index, csa, lo, hi, max_buf, max_cover)
     tensors, ints = kernel_operands(index, csa)

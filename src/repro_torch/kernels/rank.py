@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.common import IDX, rank1_words
 from repro_torch.kernels import _build
+from repro_torch.kernels._record import record
 
 
 def rank_plain(words, ones_prefix, idx):
@@ -33,6 +34,8 @@ def rank(words, ones_prefix, idx):
     on CPU tensors it runs the plain version.  ``Q == 0`` has a closed-form
     empty answer and launches nothing."""
     dev = idx.device
+    if idx.shape[0]:
+        record("rank", words, ones_prefix, idx)
     if dev.type != "cuda":
         return rank_plain(words, ones_prefix, idx)
     for name, t in (("words", words), ("ones_prefix", ones_prefix), ("idx", idx)):

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.common import IDX
 from repro_torch.kernels import _build
+from repro_torch.kernels._record import record
 from repro_torch.succinct.rmq import leftmost_argmin
 
 
@@ -35,6 +36,8 @@ def rmq(values, table, lo, hi):
     on CPU tensors it runs the plain version.  ``Q == 0`` has a closed-form
     empty answer and launches nothing."""
     dev = lo.device
+    if lo.shape[0]:
+        record("rmq", values, table, lo, hi)
     if dev.type != "cuda":
         return rmq_plain(values, table, lo, hi)
     for name, t, dims in (("values", values, 1), ("table", table, 2),

@@ -21,6 +21,7 @@ import torch
 from repro_torch.common import IDX
 from repro_torch.core.csa import CSA, doc_at
 from repro_torch.kernels import _build
+from repro_torch.kernels._record import record
 from repro_torch.kernels.csa_view import check_csa_operands
 from repro_torch.kernels.ilcp_list import pop_cap, stack_cap
 from repro_torch.kernels.rmq import rmq_plain
@@ -104,6 +105,7 @@ def sada_c_list(values, table, da, lo, hi, *, d: int, max_df: int):
     if B == 0 or max_df <= 0 or d <= 0:
         return (torch.full((B, max(max_df, 0)), -1, dtype=IDX, device=dev),
                 torch.zeros(B, dtype=IDX, device=dev))
+    record("sada_c_list", values, table, da, lo, hi)
     if dev.type != "cuda":
         return sada_c_list_plain(values, table, da, lo, hi, d=d, max_df=max_df)
     for name, t, dims in (("values", values, 1), ("table", table, 2),

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.common import IDX, popcount32, u32
 from repro_torch.kernels import _build
+from repro_torch.kernels._record import record
 
 #: stack entries of the kernel's threads (``rt::kWtStack``)
 KERNEL_STACK = 34
@@ -107,6 +108,7 @@ def wt_list(words, prefix, zcount, lo, hi, *, max_df: int):
         return (torch.full((B, max(max_df, 0)), -1, dtype=IDX, device=dev),
                 torch.zeros((B, max(max_df, 0)), dtype=IDX, device=dev),
                 torch.zeros(B, dtype=IDX, device=dev))
+    record("wt_list", words, prefix, zcount, lo, hi)
     if dev.type != "cuda":
         return wt_list_plain(words, prefix, zcount, lo, hi, max_df=max_df)
     for name, t, dims in (("words", words, 2), ("prefix", prefix, 2),

@@ -204,10 +204,11 @@ class Program:
     not run: the capture's own increments are undone, and each replay adds
     the launches per kernel it recorded.  A call returns the static
     outputs, which the next replay overwrites: read them first.  On CPU
-    tensors a call runs ``fn`` eagerly."""
+    tensors a call runs ``fn`` eagerly.  ``clock`` times the capture."""
 
-    def __init__(self, fn, args):
+    def __init__(self, fn, args, clock=time.perf_counter):
         self.fn = fn
+        self.clock = clock
         self.graph = None
         #: launches per kernel of one replay (name -> count); seconds of
         #: the capture; bytes of the graph's private pool
@@ -224,7 +225,7 @@ class Program:
             self.fn(*self.inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [k.launches for k in COUNTED_KERNELS]
-        t0 = time.perf_counter()
+        t0 = self.clock()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
@@ -235,7 +236,7 @@ class Program:
             for k, b in zip(COUNTED_KERNELS, before):
                 k.launches = b  # the capture launched nothing
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s = self.clock() - t0
         self.launches = {k.__name__: n for k, n in zip(COUNTED_KERNELS, recorded) if n}
         self.graph = graph
 
@@ -285,7 +286,7 @@ class RetrievalService:
         cls, coll: Collection, block_size: int = 64, beta: float = 16.0,
         sada_variant: str = "sparse", sample_rate: int = 16,
         brute_window: int | None = None, topk_index: bool = True,
-        validate: bool = True, device="cuda", mesh=None,
+        validate: bool = True, device="cuda", mesh=None, clock=time.perf_counter,
     ):
         """Build the index stack on ``device`` (the card unless the caller
         asks for the CPU).  Queries go through the kernel wrappers, which
@@ -302,24 +303,25 @@ class RetrievalService:
         ``mesh`` (``repro_torch.dist.sharding.make_docs_mesh``) builds the
         docs-sharded service instead: contiguous document shards, each
         with its own stack, merged exactly
-        (``repro_torch.serve.sharded.ShardedRetrievalService``)."""
+        (``repro_torch.serve.sharded.ShardedRetrievalService``).  ``clock``
+        times the stages (``build_seconds``)."""
         if mesh is not None:
             from repro_torch.serve.sharded import ShardedRetrievalService
 
             return ShardedRetrievalService.build(
                 coll, mesh, block_size=block_size, beta=beta, sada_variant=sada_variant,
                 sample_rate=sample_rate, brute_window=brute_window, topk_index=topk_index,
-                validate=validate, device=device,
+                validate=validate, device=device, clock=clock,
             )
         dev = resolve_device(device)
         seconds = {}
 
         def timed(name, fn, *args, **kw):
-            t0 = time.perf_counter()
+            t0 = clock()
             out = fn(*args, **kw)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            seconds[name] = time.perf_counter() - t0
+            seconds[name] = clock() - t0
             return out
 
         data = timed("suffix", build_suffix_data, coll, dev)
@@ -358,6 +360,24 @@ class RetrievalService:
     def compiled_programs(self) -> dict:
         """The live program cache, keyed (kind, statics)."""
         return dict(self._cache)
+
+    # the program of each endpoint kind, with the index bound in: what the
+    # cache builds and ``endpoint_program`` hands the audit
+
+    def _plan_fn(self):
+        return functools.partial(plan_queries, self.csa, self.sada)
+
+    def _list_fn(self, max_df, win, max_buf):
+        return functools.partial(_list_program, max_df, win, max_buf, self.csa, self.ilcp,
+                                 self.pdl_list, self.da, self.sada)
+
+    def _topk_fn(self, k, max_df, win, max_buf):
+        return functools.partial(_topk_program, k, max_df, win, max_buf, self.csa,
+                                 self.pdl_topk, self.sada)
+
+    def _tfidf_fn(self, k, conjunctive, max_buf):
+        return functools.partial(_tfidf_program, k, conjunctive, max_buf, self.csa,
+                                 self.pdl_topk, self.sada)
 
     # -- batching ------------------------------------------------------------
 
@@ -423,10 +443,7 @@ class RetrievalService:
         pats, lens, B = self._pad_batch(patterns)
         args = (pats, lens, *self._knobs(engine))
         faults.fire("plan")
-        prog = self._compiled(
-            "plan", (tuple(pats.shape),),
-            lambda: functools.partial(plan_queries, self.csa, self.sada), args,
-        )
+        prog = self._compiled("plan", (tuple(pats.shape),), self._plan_fn, args)
         plan = prog(*args)
         return {
             name: getattr(plan, name)[:B].cpu().numpy()
@@ -471,9 +488,7 @@ class RetrievalService:
         faults.fire("executor:list")
         prog = self._compiled(
             "list", (tuple(pats.shape), max_df, win, max_buf),
-            lambda: functools.partial(_list_program, max_df, win, max_buf, self.csa,
-                                      self.ilcp, self.pdl_list, self.da, self.sada),
-            args,
+            lambda: self._list_fn(max_df, win, max_buf), args,
         )
         docs, cnt, _ = prog(*args)
         return faults.poison("executor:list", (docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()))
@@ -513,9 +528,7 @@ class RetrievalService:
         faults.fire("executor:topk")
         prog = self._compiled(
             "topk", (tuple(pats.shape), k, max_df, win, max_buf),
-            lambda: functools.partial(_topk_program, k, max_df, win, max_buf, self.csa,
-                                      self.pdl_topk, self.sada),
-            args,
+            lambda: self._topk_fn(k, max_df, win, max_buf), args,
         )
         docs, tfs, _ = prog(*args)
         return faults.poison("executor:topk", (docs[:B].cpu().numpy(), tfs[:B].cpu().numpy()))
@@ -542,9 +555,7 @@ class RetrievalService:
         faults.fire("executor:tfidf")
         prog = self._compiled(
             "tfidf", (tuple(args[0].shape), k, conjunctive, max_buf),
-            lambda: functools.partial(_tfidf_program, k, conjunctive, max_buf, self.csa,
-                                      self.pdl_topk, self.sada),
-            args,
+            lambda: self._tfidf_fn(k, conjunctive, max_buf), args,
         )
         docs, scores = prog(*args)
         return faults.poison("executor:tfidf",
@@ -646,6 +657,55 @@ class RetrievalService:
                  if d >= 0] for qi in range(Q)]
 
     # -- introspection --------------------------------------------------------
+
+    #: endpoint kinds with a program per shape bucket (``count`` rides the
+    #: ``plan`` program)
+    ENDPOINT_KINDS = ("plan", "list", "topk", "tfidf")
+
+    def endpoint_program(self, kind: str, *, max_df: int = 64, k: int = 10,
+                         max_buf: int = 512, conjunctive: bool = False):
+        """The program the cache would build for ``kind``, from the same
+        builders, and its example arguments: ``(fn, args_builder)``, where
+        ``args_builder(B, m)`` makes a padded [B, m-bucket] batch on the
+        service's device (``tfidf``: [B, 2, m-bucket] terms) with the
+        planner's ``auto`` knobs.  ``list`` and ``topk`` take the pinned
+        Brute-L window ``min(BRUTE_WINDOW_FLOOR, max_buf)``, as the
+        reference's audit does; the extra plan pass of an automatic window
+        runs outside the program.  ``repro_torch.analysis`` audits these."""
+        win = min(BRUTE_WINDOW_FLOOR, max_buf)
+        if kind == "plan":
+            fn = self._plan_fn()
+        elif kind == "list":
+            fn = self._list_fn(max_df, win, max_buf)
+        elif kind == "topk":
+            self._require_topk_index()
+            fn = self._topk_fn(k, self._topk_max_df(max_buf), win, max_buf)
+        elif kind == "tfidf":
+            self._require_topk_index()
+            fn = self._tfidf_fn(k, conjunctive, max_buf)
+
+            def terms(B, m):
+                return (torch.zeros((B, 2, _bucket_len(m)), dtype=IDX, device=self.device),
+                        torch.ones((B, 2), dtype=IDX, device=self.device))
+
+            return fn, terms
+        else:
+            raise ValueError(f"unknown endpoint kind {kind!r}")
+        return fn, self._audit_batch
+
+    def _audit_batch(self, B: int, m: int):
+        dev = self.device
+        return (torch.zeros((B, _bucket_len(m)), dtype=IDX, device=dev),
+                torch.ones(B, dtype=IDX, device=dev), *self._knobs("auto"))
+
+    def trace_endpoint(self, kind: str, B: int = 8, m: int = 8, **kw):
+        """One run of ``kind``'s program at the (B, m) bucket, recorded
+        (``repro_torch.analysis.programs.ProgramTrace``); ``kw`` goes to
+        ``endpoint_program``."""
+        from repro_torch.analysis.programs import trace_program
+
+        fn, args = self.endpoint_program(kind, **kw)
+        return trace_program(kind, (B, m), fn, args(_bucket_batch(B), m))
 
     def space_report(self) -> dict:
         """Bits-per-character accounting in the paper's units, keyed in the

@@ -187,6 +187,11 @@ class ShardedRetrievalService:
     _pad_batch = RetrievalService._pad_batch
     _pad_terms = RetrievalService._pad_terms
     _knobs = RetrievalService._knobs
+    # and its audit surface, over the sharded program builders below
+    ENDPOINT_KINDS = RetrievalService.ENDPOINT_KINDS
+    endpoint_program = RetrievalService.endpoint_program
+    _audit_batch = RetrievalService._audit_batch
+    trace_endpoint = RetrievalService.trace_endpoint
 
     @property
     def device(self) -> torch.device:
@@ -199,11 +204,11 @@ class ShardedRetrievalService:
         cls, coll: Collection, mesh: DocsMesh, block_size: int = 64, beta: float = 16.0,
         sada_variant: str = "sparse", sample_rate: int = 16,
         brute_window: int | None = None, topk_index: bool = True,
-        validate: bool = True, device=None,
+        validate: bool = True, device=None, clock=time.perf_counter,
     ):
         """One flat ``RetrievalService`` per contiguous document shard, all
         on the mesh's device (``device``, where given, must be that one),
-        then ``validate_sharded_service``."""
+        then ``validate_sharded_service``; ``clock`` times them."""
         want = mesh.device if device is None else resolve_device(device)
         if want.type != mesh.device.type or (
                 None not in (want.index, mesh.device.index) and want.index != mesh.device.index):
@@ -211,21 +216,21 @@ class ShardedRetrievalService:
         bounds = doc_shard_bounds(coll.d, docs_mesh_size(mesh))
         shards, seconds = [], {}
         for s, (dlo, dhi) in enumerate(bounds):
-            t0 = time.perf_counter()
+            t0 = clock()
             shards.append(RetrievalService.build(
                 subcollection(coll, dlo, dhi), block_size=block_size, beta=beta,
                 sada_variant=sada_variant, sample_rate=sample_rate,
                 brute_window=brute_window, topk_index=topk_index, validate=False,
-                device=mesh.device,
+                device=mesh.device, clock=clock,
             ))
-            seconds[f"shard{s}"] = time.perf_counter() - t0
+            seconds[f"shard{s}"] = clock() - t0
         svc = cls(coll=coll, mesh=mesh, shards=shards,
                   doc_bases=np.asarray([b[0] for b in bounds], np.int32),
                   brute_window=brute_window, build_seconds=seconds)
         if validate:
-            t0 = time.perf_counter()
+            t0 = clock()
             svc.fingerprints.update(validate_sharded_service(svc))
-            seconds["validate"] = time.perf_counter() - t0
+            seconds["validate"] = clock() - t0
         return svc
 
     @property
@@ -259,6 +264,24 @@ class ShardedRetrievalService:
         for sh in self.shards:
             sh._require_topk_index()
 
+    # the sharded program of each endpoint kind (``RetrievalService._plan_fn``
+    # and its siblings' counterparts)
+
+    def _plan_fn(self):
+        return functools.partial(_sharded_plan_program, self.shards)
+
+    def _list_fn(self, max_df, win, max_buf):
+        return functools.partial(_sharded_list_program, max_df, win, max_buf, self.shards,
+                                 self._bases())
+
+    def _topk_fn(self, k, max_df, win, max_buf):
+        return functools.partial(_sharded_topk_program, k, max_df, win, max_buf, self.shards,
+                                 self._bases())
+
+    def _tfidf_fn(self, k, conjunctive, max_buf):
+        return functools.partial(_sharded_tfidf_program, self.coll.d, k, conjunctive, max_buf,
+                                 self.shards, self._bases())
+
     # -- endpoints -----------------------------------------------------------
 
     def plan(self, patterns, engine: str = "auto"):
@@ -268,10 +291,7 @@ class ShardedRetrievalService:
         pats, lens, B = self._pad_batch(patterns)
         args = (pats, lens, *self._knobs(engine))
         faults.fire("plan")
-        prog = self._compiled(
-            "plan", (tuple(pats.shape),),
-            lambda: functools.partial(_sharded_plan_program, self.shards), args,
-        )
+        prog = self._compiled("plan", (tuple(pats.shape),), self._plan_fn, args)
         lo, hi, eng, occ, df = (x.cpu().numpy() for x in prog(*args))
         return {"lo": lo[:, :B], "hi": hi[:, :B], "engine_shard": eng[:, :B],
                 "occ": occ[:B], "df": df[:B]}
@@ -296,9 +316,7 @@ class ShardedRetrievalService:
         faults.fire("executor:list")
         prog = self._compiled(
             "list", (tuple(pats.shape), max_df, win, max_buf),
-            lambda: functools.partial(_sharded_list_program, max_df, win, max_buf,
-                                      self.shards, self._bases()),
-            args,
+            lambda: self._list_fn(max_df, win, max_buf), args,
         )
         docs, cnt = prog(*args)
         return faults.poison("executor:list", (docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()))
@@ -327,9 +345,7 @@ class ShardedRetrievalService:
         faults.fire("executor:topk")
         prog = self._compiled(
             "topk", (tuple(pats.shape), k, max_df, win, max_buf),
-            lambda: functools.partial(_sharded_topk_program, k, max_df, win, max_buf,
-                                      self.shards, self._bases()),
-            args,
+            lambda: self._topk_fn(k, max_df, win, max_buf), args,
         )
         docs, tfs = prog(*args)
         return faults.poison("executor:topk", (docs[:B].cpu().numpy(), tfs[:B].cpu().numpy()))
@@ -351,9 +367,7 @@ class ShardedRetrievalService:
         faults.fire("executor:tfidf")
         prog = self._compiled(
             "tfidf", (tuple(args[0].shape), k, conjunctive, max_buf),
-            lambda: functools.partial(_sharded_tfidf_program, self.coll.d, k, conjunctive,
-                                      max_buf, self.shards, self._bases()),
-            args,
+            lambda: self._tfidf_fn(k, conjunctive, max_buf), args,
         )
         docs, scores = prog(*args)
         return faults.poison("executor:tfidf",
