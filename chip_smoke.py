@@ -172,6 +172,27 @@ Phases (any failure exits non-zero; nothing is caught):
    ``plan`` program with a second, unrecorded backward search exactly one
    ``graph_kernels`` violation, and ``python -m repro_torch.analysis`` as
    a subprocess must exit 0.
+10. LM training (after phase 6): smollm-135m at full width and depth (30 x
+   576, 9 heads over 3 KV heads, Dh 64, vocab 49,152, tied embeddings,
+   134.5M parameters), bf16, seeded random weights,
+   ``attention_impl="flash"``.  (a) 8 AdamW steps through ``train`` on 4 x
+   4,096 tokens a step from ``lm_batches`` (the registry's ``train_4k``
+   length; its batch of 256 cut to 4), checkpoints at steps 4 and 8:
+   finite losses, exactly 60 flash launches per step, all on the Hopper
+   kernel (30 in the forward, 30 when the checkpointed groups recompute in
+   the backward), and step 1's batch scoring lower with step 8's
+   checkpoint than at step 1.  One step profiled: wall, device time, busy
+   share, the flash forward per launch, the top kernels.  A full-width
+   checkpoint round trip bit for bit.  (c) ``train_with_recovery`` with a
+   failure injected at step 6 resumes from step 4's checkpoint and ends at
+   step 8, its losses equal to (a)'s; the same 8 steps with
+   ``compress_grads=True``.  (b) The Function's dq/dk/dv on layer 0's q/k/v
+   of (a) against autograd through ``flash_attention_plain``, and
+   ``flash_attention_vjp``'s time per layer; in f32 at full width on 1 x
+   2,048 tokens, the flash step (SIMT kernel) against the ``"xla"`` step,
+   plain autograd: the loss and every gradient leaf, ``wq``, ``wk`` and
+   ``wv`` included.  (d) ``python -m repro_torch.launch.train --arch
+   smollm-135m --steps 20`` as a subprocess, exit 0.
 
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -183,7 +204,16 @@ within 2 bf16 ulps of the plain version (they compute in f32, the Hopper
 flash kernel with P split into two bf16 parts, and round once; ulps are
 counted at each element's magnitude, floored at 2^-8 of the tensor's
 largest).  The LM checks hold f32 logits within 1e-3 (summation
-order through 28 layers; logits reach about 5).
+order through 28 layers; logits reach about 5).  Training (phase 10): the
+f32 flash step's loss within 1e-4 relative of the "xla" step's and every
+gradient leaf within 1e-3 in relative norm (summation order; a dropped
+attention gradient is off by order 1); the Function's bf16 dq/dk/dv within
+2 bf16 ulps of autograd through the plain version (both in f32, one
+rounding each); the resumed run's losses within 1e-2 of the uninterrupted
+run's (bf16 steps whose sums may run in another order, the embedding
+gradient's accumulation among them); compressed against uncompressed
+training, the mean of the last 4 losses within 0.25, the reference's own
+parity bound.
 """
 
 from __future__ import annotations
@@ -191,6 +221,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -222,6 +253,17 @@ LM_LONG = (1, 32768, 8)       # the registry's prefill_32k length at batch 1
 LM_CHECK_TOKENS = 2048        # f32 checks on 1 x 2,048 tokens
 LM_CHECK_STEPS = 4
 LM_F32_TOL = 1e-3
+TRAIN_BATCH = (4, 4096)       # the registry's train_4k length; its batch of 256 cut to 4
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_AT = 6             # the recovery run's injected failure
+TRAIN_CHECK_TOKENS = 2048     # the f32 gradient check on 1 x 2,048 tokens
+TRAIN_LOSS_RTOL = 1e-4        # f32 flash step's loss against the "xla" step's
+TRAIN_GRAD_RTOL = 1e-3        # each gradient leaf, in relative Frobenius norm
+TRAIN_RESUME_TOL = 1e-2       # resumed bf16 losses against the uninterrupted run's
+TRAIN_PARITY_BOUND = 0.25     # compressed against uncompressed (the reference's bound)
+TRAIN_CLI_STEPS = 20
+TRAIN_CLI_ARGS = ()           # extra flags of the training CLI's run
 FLASH_F32_TOL = 2e-5
 BAG_F32_TOL = 1e-6
 BF16_ULPS = 2
@@ -2463,6 +2505,248 @@ def flash_kernel_checks(dev, qkv, reps=(20, 3)):
         **main, **{f"long_{k}": v for k, v in records["long"].items()})
 
 
+def rel_norm(got, want) -> float:
+    """||got - want|| / ||want|| in f64 (f32 leaves)."""
+    g, w = got.double(), want.double()
+    return float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp_min(1e-30))
+
+
+def phase_train(dev, fa, cfg, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                check_tokens=TRAIN_CHECK_TOKENS, cli_steps=TRAIN_CLI_STEPS):
+    """Phase 10: LM training at full width.  (a) ``steps`` bf16 AdamW steps
+    through ``train``, flash launches per step, finite losses, the loss of
+    step 1's batch after the last step; (b) the f32 flash step's loss and
+    gradients against the "xla" step's, then the Function's dq/dk/dv on
+    layer 0's q/k/v of (a) against autograd through the plain version;
+    (c) recovery after an injected failure, a checkpoint round trip bit for
+    bit, compressed training; (d) the CLI; (e) step time, memory, the flash
+    forward and the VJP inside a profiled step.  Returns the launches of
+    (a) and the numbers."""
+    import dataclasses
+    import itertools
+
+    from repro_torch.data.pipelines import lm_batches
+    from repro_torch.kernels.flash_attention import flash_attention_plain, flash_attention_vjp
+    from repro_torch.models.transformer import _group_params, _qkv, forward_train, init_params
+    from repro_torch.train.checkpoint import (
+        latest_checkpoint, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.train.loop import FailureInjector, train, train_with_recovery, value_and_grad
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update, opt_state_shapes
+    from repro_torch.train.tree import flatten, map_leaves
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    B, S = batch
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers x d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} KV) x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied "
+        f"{cfg.tie_embeddings}; {cfg.param_count():,} parameters, {nbytes / 1e9:.3f} GB in "
+        f"{cfg.param_dtype}; {B} x {S} tokens a step, attention {cfg.attention_impl}")
+    batches = list(itertools.islice(lm_batches(cfg.vocab, B, S, seed=0), steps))
+
+    def loss_fn(p, b, c=cfg):
+        return forward_train(c, p, b["tokens"], b["labels"])
+
+    marks = []
+
+    def batch_fn(step):
+        marks.append((fa.launches, fa.hopper_launches))
+        return batches[step]
+
+    runs = {"batch": B, "seq": S, "steps": steps, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the main path: the counts start here and are read after train
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.hopper_launches = 0
+        t0 = time.perf_counter()
+        base = train(loss_fn, lambda: params, batch_fn, n_steps=steps,
+                     ckpt_dir=os.path.join(tmp, "base"), ckpt_every=TRAIN_CKPT_EVERY, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        marks.append((fa.launches, fa.hopper_launches))
+        launches = {"flash_attention": fa.launches}
+        per_step = [(b[0] - a[0], b[1] - a[1]) for a, b in zip(marks, marks[1:])]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(len(base.losses) == steps and all(np.isfinite(base.losses)),
+                ("training losses", base.losses))
+        require(per_step == [(2 * cfg.n_layers, 2 * cfg.n_layers)] * steps,
+                ("flash launches (all, Hopper) per training step", per_step))
+        med = float(np.median(base.step_seconds[1:]))
+        runs.update(losses=base.losses, step_seconds=base.step_seconds, step_median_s=med,
+                    tokens_per_s=B * S / med, peak_gib=peak, run_s=run_s,
+                    flash_launches_per_step=per_step[0][0], stragglers=base.straggler_steps)
+        log(f"[train] (a) {steps} steps in {run_s:.2f} s (checkpoints at "
+            f"{TRAIN_CKPT_EVERY} and {steps} included): losses "
+            + " ".join(f"{x:.4f}" for x in base.losses)
+            + "; step s " + " ".join(f"{x:.3f}" for x in base.step_seconds)
+            + f"; median of steps 2-{steps} {med:.4f} s ({B * S / med:,.0f} tokens/s); flash "
+            f"launches per step {per_step[0][0]} ({per_step[0][1]} Hopper); peak device memory "
+            f"{peak:.2f} GiB; {card}")
+        # the last step's checkpoint: the loss of step 1's batch has fallen
+        step_n, path = latest_checkpoint(os.path.join(tmp, "base"))
+        require(step_n == steps, ("last checkpoint", step_n))
+        state, _ = restore_checkpoint(path, {"params": params, "opt": opt_state_shapes(params)},
+                                      device=dev)
+        trained = state["params"]
+        with torch.no_grad():
+            again = float(loss_fn(trained, {k: torch.as_tensor(v, device=dev)
+                                            for k, v in batches[0].items()}))
+        runs["loss_step1_batch_after"] = again
+        log(f"[train] loss of step 1's batch: {base.losses[0]:.4f} at step 1, {again:.4f} after "
+            f"step {steps}")
+        require(again < base.losses[0], ("loss did not fall on a repeated batch", again))
+
+        # (e) one step profiled, on the trained state
+        opt_cfg = AdamWConfig()
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+
+        def one_step():
+            loss, grads = value_and_grad(loss_fn, trained, tb)
+            adamw_update(opt_cfg, trained, grads, state["opt"])
+            return float(loss)
+
+        prof = profile_calls(one_step, 1)
+        flash_ms = device_ms_of(prof, "flash_hopper_kernel")
+        top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:6]
+        busy = prof["device_ms"] / prof["wall_ms"] if prof["device_ms"] else None
+        runs.update(profiled_step_wall_ms=prof["wall_ms"],
+                    profiled_step_device_ms=prof["device_ms"],
+                    profiled_step_activities=prof["kernels_per_call"], busy_share=busy,
+                    flash_fwd_device_ms_per_launch=None if flash_ms is None
+                    else flash_ms / (2 * cfg.n_layers),
+                    top_device_ms={k[:80]: v for k, v in top})
+        log(f"[train] one step profiled: wall {prof['wall_ms']:.2f} ms, device "
+            f"{prof['device_ms']} ms in {prof['kernels_per_call']:.0f} device activities (busy "
+            f"share {busy}); flash kernel {flash_ms} ms over {2 * cfg.n_layers} launches; top "
+            + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top) + f"; {card}")
+        del trained, state, tb
+
+        # (c) a checkpoint round trip at full width, bit for bit
+        sample = {"params": params, "opt": {
+            "m": map_leaves(lambda p: p.float() * 2, params),
+            "v": map_leaves(lambda p: p.float() * p.float(), params),
+            "step": torch.tensor(steps, dtype=torch.int32, device=dev)}}
+        back, step_back = restore_checkpoint(save_checkpoint(os.path.join(tmp, "rt"), 7, sample),
+                                             sample, device=dev)
+        same = [torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+                and a.dtype == b.dtype and a.shape == b.shape
+                for a, b in zip(flatten(sample)[0], flatten(back)[0])]
+        require(step_back == 7 and all(same), "checkpoint round trip not bit-identical")
+        log(f"[train] checkpoint round trip: {len(same)} leaves bit-identical")
+        del sample, back
+        shutil.rmtree(os.path.join(tmp, "rt"))
+
+        # (c) recovery: fail at step TRAIN_FAIL_AT, resume from the checkpoint before it
+        failure = FailureInjector(fail_at_step=TRAIN_FAIL_AT)
+        rec = train_with_recovery(loss_fn, lambda: params, lambda s: batches[s], n_steps=steps,
+                                  ckpt_dir=os.path.join(tmp, "rec"), ckpt_every=TRAIN_CKPT_EVERY,
+                                  failure=failure, device=dev)
+        resumed_from = steps - len(rec.losses)
+        gap = max(abs(a - b) for a, b in zip(rec.losses, base.losses[resumed_from:]))
+        runs.update(resume_gap=gap, resumed_from=resumed_from, restarts=rec.restarts)
+        log(f"[train] (c) recovery: failure at step {TRAIN_FAIL_AT} fired {failure.fired}, "
+            f"resumed from step {resumed_from}, {rec.restarts} restarts, losses "
+            + " ".join(f"{x:.4f}" for x in rec.losses)
+            + f"; max |diff| against the uninterrupted run {gap:.3e} "
+            f"(tolerance {TRAIN_RESUME_TOL})")
+        require(failure.fired and rec.final_step == steps
+                and resumed_from == TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY,
+                ("recovery", failure.fired, rec.final_step, resumed_from))
+        require(gap <= TRAIN_RESUME_TOL, ("resumed losses", gap))
+        shutil.rmtree(os.path.join(tmp, "rec"))
+
+        # (c) compressed gradients
+        comp = train(loss_fn, lambda: params, lambda s: batches[s], n_steps=steps,
+                     ckpt_dir=os.path.join(tmp, "comp"), ckpt_every=TRAIN_CKPT_EVERY,
+                     compress_grads=True, device=dev)
+        w = steps // 2
+        parity = abs(float(np.mean(comp.losses[-w:])) - float(np.mean(base.losses[-w:])))
+        runs.update(compressed_losses=comp.losses, compressed_parity=parity,
+                    compressed_max_step_gap=max(abs(a - b) for a, b in zip(comp.losses,
+                                                                         base.losses)))
+        log("[train] (c) int8 compressed: losses " + " ".join(f"{x:.4f}" for x in comp.losses)
+            + f"; mean of the last {w} against uncompressed |diff| {parity:.4f} (bound "
+            f"{TRAIN_PARITY_BOUND}), largest step gap {runs['compressed_max_step_gap']:.4f}")
+        require(parity < TRAIN_PARITY_BOUND, ("compressed training parity", parity))
+
+    # (b) the Function's gradients on layer 0's q/k/v of (a), against autograd
+    # through the plain version (bf16, Hopper forward); its VJP timed
+    x = params["embed"][torch.as_tensor(batches[0]["tokens"], device=dev)].to(cfg.act_dtype)
+    q, k, v = _qkv(cfg, 0, _group_params(params["blocks"]["pos0"], 0), x,
+                   torch.arange(S, device=dev)[None, :])
+    del x
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    g = torch.randn(qt.shape, generator=gen, device=dev).to(qt.dtype)
+    ops = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    got = torch.autograd.grad(fa(*ops, causal=True), ops, g)
+    want = torch.autograd.grad(flash_attention_plain(*ops, causal=True), ops, g)
+    vjp_ulps = max(bf16_ulps(a, b) for a, b in zip(got, want))
+    vjp_abs = max(max_abs(a, b) for a, b in zip(got, want))
+    del got, want, ops
+    vjp_ms = cuda_time_ms(lambda: flash_attention_vjp(qt, kt, vt, g, causal=True), 3)
+    runs.update(vjp_ms_per_layer=vjp_ms, vjp_max_bf16_ulps=vjp_ulps, vjp_max_abs=vjp_abs)
+    log(f"[train] (b) Function dq/dk/dv on layer 0, B={B} S={S} bf16, against autograd through "
+        f"the plain version: max |diff| {vjp_abs:.3e}, {vjp_ulps:.2f} bf16 ulps (tolerance "
+        f"{BF16_ULPS}); recompute VJP {vjp_ms:.3f} ms per layer; {card}")
+    require(vjp_ulps <= BF16_ULPS, ("flash VJP beyond 2 bf16 ulps", vjp_ulps))
+    del q, k, v, qt, kt, vt, g
+
+    # (b) f32 at full width on 1 x check_tokens: the flash step (SIMT kernel
+    # and the Function's VJP) against the "xla" step, plain autograd
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    p32 = f32_params(params)
+    del params
+    free_device_memory()
+    c32 = dataclasses.replace(cfg, param_dtype=torch.float32, act_dtype=torch.float32)
+    tokens = torch.as_tensor(batches[0]["tokens"][:1, :check_tokens], device=dev)
+    b32 = {"tokens": tokens, "labels": tokens}
+    before, hopper_before = fa.launches, fa.hopper_launches
+    loss_f, grads_f = value_and_grad(lambda p, b: loss_fn(p, b, c32), p32, b32)
+    require((fa.launches - before, fa.hopper_launches - hopper_before) == (2 * cfg.n_layers, 0),
+            ("f32 flash step launches (all, Hopper)", fa.launches - before))
+    xla = dataclasses.replace(c32, attention_impl="xla")
+    loss_x, grads_x = value_and_grad(lambda p, b: loss_fn(p, b, xla), p32, b32)
+    loss_rel = abs(float(loss_f) - float(loss_x)) / abs(float(loss_x))
+    leaves_f, paths = flatten(grads_f)
+    errs = {"/".join(pth): rel_norm(a, b) for pth, a, b in zip(paths, leaves_f,
+                                                              flatten(grads_x)[0])}
+    worst = max(errs, key=errs.get)
+    runs.update(f32_loss_rel=loss_rel, f32_grad_rel=errs)
+    log(f"[train] (b) f32, 1 x {check_tokens}: flash step vs xla step, loss {float(loss_f):.6f} vs "
+        f"{float(loss_x):.6f} (relative {loss_rel:.2e}, tolerance {TRAIN_LOSS_RTOL}); gradient "
+        f"relative norms " + ", ".join(f"{p} {e:.2e}" for p, e in errs.items())
+        + f" (worst {worst}; tolerance {TRAIN_GRAD_RTOL})")
+    require(loss_rel <= TRAIN_LOSS_RTOL, ("f32 flash vs xla loss", loss_rel))
+    require(all(e <= TRAIN_GRAD_RTOL for e in errs.values()), ("f32 flash vs xla gradients", worst))
+    for name in ("wq", "wk", "wv"):
+        require(float(grads_f["blocks"]["pos0"][name].abs().max()) > 0, (name, "no gradient"))
+    del p32, grads_f, grads_x
+    free_device_memory()
+
+    # (d) the CLI
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "smollm-135m",
+             "--steps", str(cli_steps), "--ckpt", ckpt, *TRAIN_CLI_ARGS],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, ("training CLI", out.returncode, out.stderr[-2000:]))
+    line = out.stdout.strip().splitlines()[-1]
+    require(line.startswith(f"[smollm-135m] steps={cli_steps} loss "), ("CLI output", line))
+    runs["cli_s"] = time.perf_counter() - t0
+    log(f"[train] (d) python -m repro_torch.launch.train --arch smollm-135m --steps {cli_steps}: "
+        f"exit 0 in {runs['cli_s']:.1f} s; {line}")
+    runs["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase body {runs['phase_s']:.1f} s; {nvidia_smi_line()}")
+    return launches, runs
+
+
 def padded_bags(gen, rows, B, L, dev):
     """int32 [B, L] indices into ``rows`` rows; for L > 1, each bag has a
     seeded length in 1..L and -1 padding after it."""
@@ -3570,7 +3854,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import dataclasses
 
-    from repro_torch.configs import llama3_2_3b
+    from repro_torch.configs import llama3_2_3b, smollm_135m
     from repro_torch.kernels.backward_search import backward_search
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.flash_attention import flash_attention
@@ -3663,7 +3947,17 @@ def main() -> int:
     paths["embedding_bag"], bag_record = phase_embedding_bag(dev, embedding_bag)
     records.append(bag_record)
     log(f"[embag] phase {time.perf_counter() - t0:.1f} s")
+    free_device_memory()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(smollm_135m.config(), attention_impl="flash")
+    paths["lm_train"], train_runs = phase_train(dev, flash_attention, cfg)
+    flash_record = next(r for r in records if r["name"] == "flash_attention")
+    flash_record.update({f"train_{k}": train_runs[k] for k in (
+        "vjp_ms_per_layer", "vjp_max_bf16_ulps", "flash_fwd_device_ms_per_launch",
+        "step_median_s", "tokens_per_s", "peak_gib", "f32_loss_rel")})
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
     log("[lm] runs " + json.dumps(lm_runs))
+    log("[train] runs " + json.dumps(train_runs))
     for r in records:
         # each kernel's launches on the paths that run it, each path counted
         # from 0 just before it ran

@@ -22,6 +22,13 @@ Both take any S_q and S_kv (they mask the ragged tail themselves) and head
 dims up to 128.  The reference's wrapper hands shapes that are not a
 multiple of its block to its plain reference; here every shape goes to a
 kernel.
+
+The gradient is the reference's design (``_flash_diff``, ``_flash_fwd``,
+``_flash_bwd``): ``_FlashFunction`` runs the same forward (kernel or plain
+version, same route rule and counters) and saves q, k and v; its backward
+is ``flash_attention_vjp``, the recompute VJP of the reference's plain
+attention, in plain tensor code blockwise over query blocks.  The
+reference has no backward kernel, so neither has the port.
 """
 
 from __future__ import annotations
@@ -115,6 +122,69 @@ def _tma_strides(t):
     return [st if n > 1 else step for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
+def flash_attention_vjp(q, k, v, g, *, causal=True, q_block=1024):
+    """(dq, dk, dv) of ``flash_attention_plain`` at q, k, v for the output
+    gradient g (the reference's ``_flash_bwd``: ``jax.vjp`` of its plain
+    attention), each in its operand's dtype.  Recomputes each block of
+    ``q_block`` query rows' f32 logits and softmax, takes the block's dq and
+    adds its share to dk and dv in f32, so one [B, H, q_block, S_kv] tile is
+    live, not S_q x S_kv.  A KV head's dk and dv sum over the query heads of
+    its group, as autograd through the plain version's
+    ``repeat_interleave`` does."""
+    _check_shapes(q, k, v, causal=causal)
+    if g.shape != q.shape:
+        raise ValueError(f"flash_attention_vjp: gradient {tuple(g.shape)} is not the output's "
+                         f"{tuple(q.shape)}")
+    B, H, S_q, Dh = q.shape
+    H_kv, S_kv = k.shape[1], k.shape[2]
+    rep = H // H_kv
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    scale = Dh ** -0.5
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dkf = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dvf = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    kpos = torch.arange(S_kv, device=q.device)
+    for s0 in range(0, S_q, q_block):
+        s1 = min(s0 + q_block, S_q)
+        qb, gb = q[:, :, s0:s1].float(), g[:, :, s0:s1].float()
+        logits = torch.matmul(qb, kf.transpose(-1, -2)).mul_(scale)
+        if causal:
+            qpos = torch.arange(s0, s1, device=q.device)[:, None] + (S_kv - S_q)
+            logits.masked_fill_(kpos[None, :] > qpos, float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        del logits
+        dvf += torch.matmul(probs.transpose(-1, -2), gb)
+        # softmax's VJP, as jax.nn.softmax's: probs * (dp - sum(dp * probs)),
+        # then the logits' scale; written into dp's tile
+        ds = torch.matmul(gb, vf.transpose(-1, -2))
+        ds.sub_((ds * probs).sum(-1, keepdim=True)).mul_(probs).mul_(scale)
+        del probs
+        dq[:, :, s0:s1] = torch.matmul(ds, kf).to(q.dtype)
+        dkf += torch.matmul(ds.transpose(-1, -2), qb)
+    dk = dkf.view(B, H_kv, rep, S_kv, Dh).sum(2).to(k.dtype)
+    dv = dvf.view(B, H_kv, rep, S_kv, Dh).sum(2).to(v.dtype)
+    return dq, dk, dv
+
+
+class _FlashFunction(torch.autograd.Function):
+    """The differentiable flash attention (the reference's ``_flash_diff``):
+    the forward of ``flash_attention`` (the kernel on CUDA tensors, the plain
+    version on CPU tensors), q, k and v saved as ``_flash_fwd`` saves its
+    residuals, and ``flash_attention_vjp`` as the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, route=None):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _forward(q, k, v, causal=causal, route=route)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_vjp(q, k, v, g, causal=ctx.causal), None, None)
+
+
 def flash_attention(q, k, v, *, causal=True, route=None):
     """Attention of q [B, H, S_q, Dh] over k, v [B, H_kv, S_kv, Dh]
     (``H % H_kv == 0``); returns [B, H, S_q, Dh] in q's dtype, laid out as
@@ -126,9 +196,22 @@ def flash_attention(q, k, v, *, causal=True, route=None):
     ValueError where ``flash_route`` says "simt").  Every launch counts in
     ``flash_attention.launches``, the Hopper kernel's also in
     ``flash_attention.hopper_launches``.  On CPU tensors it runs the plain
-    version.  An empty output launches nothing."""
+    version.  An empty output launches nothing.
+
+    When grad mode is on and an operand requires grad, the call goes through
+    ``_FlashFunction``: the same forward, differentiable by
+    ``flash_attention_vjp``."""
     if route not in (None, *ROUTES):
         raise ValueError(f"flash_attention: route {route!r} is none of {ROUTES}")
+    differentiable = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if differentiable:
+        return _FlashFunction.apply(q, k, v, causal, route)
+    return _forward(q, k, v, causal=causal, route=route)
+
+
+def _forward(q, k, v, *, causal, route):
+    """``flash_attention``'s forward: the kernel on CUDA tensors, the plain
+    version on CPU tensors; never recorded by autograd."""
     dev = q.device
     if dev.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal)

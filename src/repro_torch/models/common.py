@@ -1,6 +1,7 @@
 """Shared model building blocks (counterpart of ``repro.models.common``):
-RMS norm, rotary embeddings, SwiGLU.  ``mlp`` and ``softmax_xent`` are not
-ported yet (ROADMAP queue A12)."""
+RMS norm, rotary embeddings, SwiGLU.  The LM's loss is
+``models.transformer._chunked_xent``; ``normal_init``, ``mlp`` and
+``softmax_xent`` wait for the recsys models (ROADMAP A12.4)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Llama-family decoder transformers, dense subset (counterpart of
-``repro.models.transformer``): the serving steps ``forward_prefill`` and
-``forward_decode`` of dense LMs (Llama 3.x, SmolLM).
+``repro.models.transformer``): the training step ``forward_train`` and the
+serving steps ``forward_prefill`` and ``forward_decode`` of dense LMs
+(Llama 3.x, SmolLM).
 
 Parameters are a plain dict with the reference's keys and layouts:
 ``embed`` [V, D], ``final_norm`` [D], ``lm_head`` [D, V] (absent when tied)
@@ -9,17 +10,21 @@ tensors stacked over the ``n_groups`` groups: ``attn_norm``/``ffn_norm``
 [G, D], ``wq`` [G, D, H, Dh], ``wk``/``wv`` [G, D, K, Dh], ``wo``
 [G, H, Dh, D], ``w_gate``/``w_up`` [G, D, F], ``w_down`` [G, F, D].  The KV
 cache is ``{pos{p}: {"k", "v"}}`` of [G, B, S_max, K, Dh].  Groups run as a
-Python loop (the reference's ``lax.scan``).
+Python loop (the reference's ``lax.scan``); in ``forward_train`` each group
+is one non-reentrant ``torch.utils.checkpoint`` (the reference's
+``nothing_saveable`` remat): only the group's input is kept, and the
+backward reruns the group's forward, its attention kernel included.
 
 Attention: GQA with RoPE on every layer of a dense (period-1) model.
-``attention_impl="flash"`` runs prefill attention through the hand-written
-kernel (``repro_torch.kernels.flash_attention``); ``"xla"`` is the
-reference's blockwise path in plain tensor code.  Decode attention is plain
-tensor code on both, as in the reference.
+``attention_impl="flash"`` runs training and prefill attention through the
+hand-written kernel (``repro_torch.kernels.flash_attention``, differentiable
+by the reference's recompute VJP); ``"xla"`` is the reference's blockwise
+path in plain tensor code, differentiated by autograd.  Decode attention is
+plain tensor code on both, as in the reference.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-MoE (``_moe_ffn``, ``_moe_ffn_ep``), chunked-local attention, expert
-parallelism (``ep_mesh``) and the training step.
+MoE (``_moe_ffn``, ``_moe_ffn_ep``), chunked-local attention and expert
+parallelism (``ep_mesh``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
@@ -232,17 +238,72 @@ def _qkv(cfg: LMConfig, pos: int, p, x, positions):
 
 
 def _dense_ffn(cfg: LMConfig, p, x):
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    """The dense FFN and its auxiliary loss (none: 0.0, the reference's
+    ``jnp.float32(0)``)."""
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
 
 
 def _sublayer_train(cfg: LMConfig, pos: int, p, x, positions):
-    """One decoder layer over the full sequence (prefill): the new
-    residual stream and the layer's (k, v)."""
+    """One decoder layer over the full sequence (training, prefill): the
+    new residual stream, the FFN's auxiliary loss and the layer's (k, v)."""
     q, k, v = _qkv(cfg, pos, p, x, positions)
     attn = _gqa_attention(cfg, q, k, v)
     x = x + _attn_out(attn, p["wo"])
-    x = x + _dense_ffn(cfg, p, rms_norm(x, p["ffn_norm"]))
-    return x, (k, v)
+    y, aux = _dense_ffn(cfg, p, rms_norm(x, p["ffn_norm"]))
+    return x + y, aux, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def _remat_group(cfg: LMConfig, block, x, aux):
+    """One group's sub-layers (the reference's ``_remat_group`` body): the
+    new residual stream and the auxiliary loss summed on."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for pos in range(cfg.period):
+        x, a, _ = _sublayer_train(cfg, pos, block[f"pos{pos}"], x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def forward_train(cfg: LMConfig, params, tokens, labels):
+    """Mean next-token loss over [B, S] tokens: position s predicts
+    ``labels[:, s + 1]``.  Each group runs under a non-reentrant
+    ``checkpoint`` (only its input is saved; the backward recomputes it),
+    then the final norm and ``_chunked_xent`` over the head (the tied head
+    is ``embed.T``).  Plus the reference's ``0.01 * aux / n_groups`` (0 for
+    a dense FFN)."""
+    _require_ported(cfg)
+    x = params["embed"][tokens].to(cfg.act_dtype)
+    aux = 0.0
+    for g in range(cfg.n_groups):
+        block = {key: _group_params(b, g) for key, b in params["blocks"].items()}
+        x, aux = checkpoint(_remat_group, cfg, block, x, aux, use_reentrant=False)
+    x = rms_norm(x, params["final_norm"])
+    loss = _chunked_xent(cfg, x[:, :-1], _head(cfg, params), labels[:, 1:])
+    return loss + 0.01 * aux / cfg.n_groups
+
+
+def _chunked_xent(cfg: LMConfig, x, head, labels, chunk: int = 512):
+    """Mean cross entropy of x [B, S, D] @ head [D, V] against labels
+    [B, S] without the [B, S, V] logits: the reference's unrolled loop over
+    sequence chunks of ``chunk`` (the last one ragged), each one [B, chunk,
+    V] tile formed in the activation dtype and reduced in f32."""
+    B, S, _ = x.shape
+    head = head.to(cfg.act_dtype)
+    cb = min(chunk, S)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = 0
+    for lo in range(0, S, cb):
+        width = min(cb, S - lo)
+        logits = (x[:, lo:lo + width] @ head).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, lo:lo + width, None].long())[..., 0]
+        total = total + torch.sum(logz - gold)
+        count += B * width
+    return total / count
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +335,7 @@ def forward_prefill(cfg: LMConfig, params, tokens, max_seq: int | None = None):
         for pos in range(cfg.period):
             key = f"pos{pos}"
             p = _group_params(params["blocks"][key], g)
-            x, (k, v) = _sublayer_train(cfg, pos, p, x, positions)
+            x, _, (k, v) = _sublayer_train(cfg, pos, p, x, positions)
             cache[key]["k"][g, :, :S] = k
             cache[key]["v"][g, :, :S] = v
     x = rms_norm(x, params["final_norm"])
@@ -298,7 +359,8 @@ def _sublayer_decode(cfg: LMConfig, pos: int, p, x, cache_kv, t: int):
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     attn = torch.einsum("bkrt,btkd->bkrd", probs, cv).reshape(B, cfg.n_heads, dh)
     x = x + _attn_out(attn, p["wo"])
-    return x + _dense_ffn(cfg, p, rms_norm(x, p["ffn_norm"]))
+    h = rms_norm(x, p["ffn_norm"])
+    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
 def forward_decode(cfg: LMConfig, params, token, cache, t: int):
