@@ -388,6 +388,24 @@ class Chain:
                 hi = mid
         return lo
 
+    def group_search(self, name, arr, x, lanes=16):
+        """``rt::group_search`` (lower bound) over int32 ``arr`` by
+        ``lanes`` lanes: one round per ballot, its pivots read together.
+        (index, arr[index], None when the index is len(arr))."""
+        lo, hi, at = 0, len(arr), None
+        while lo < hi:
+            span = hi - lo
+            piv = ([lo + t for t in range(span)] if span <= lanes else
+                   [lo + ((t + 1) * span >> (lanes.bit_length() - 1)) for t in range(lanes - 1)])
+            p = len(piv)
+            self.read(*((name, q >> 5) for q in piv))
+            c = sum(1 for q in piv if arr[q] < x)
+            next_lo = piv[c - 1] + 1 if c else lo
+            if c < p:
+                hi, at = piv[c], int(arr[piv[c]])
+            lo = next_lo
+        return lo, at
+
     def ns(self, lat):
         return self.l2 * lat["l2_ns"] + self.l1 * lat["l1_ns"]
 
@@ -2909,6 +2927,21 @@ class HostLocate:
         self.doc_starts = csa.doc_bv.pos.cpu().numpy()
         self.m, self.levels, self.rate = csa.sampled.m, wm.levels, csa.sample_rate
 
+    def lf(self, chain, j):
+        """``rt::csa_lf``: one round per wavelet level, one for the
+        symbol's offsets."""
+        pos, sym = j, 0
+        for lvl in range(self.levels):
+            w = pos >> 5
+            chain.read(("words", lvl, w >> 5), ("prefix", lvl, w >> 5))
+            word = int(self.words[lvl, w])
+            bit = (word >> (pos & 31)) & 1
+            r1 = int(self.prefix[lvl, w]) + bin(word & ((1 << (pos & 31)) - 1)).count("1")
+            pos = int(self.zcount[lvl]) + r1 if bit else pos - r1
+            sym = (sym << 1) | bit
+        chain.read(("counts", sym >> 5), ("sym_starts", sym >> 5))
+        return int(self.counts[sym]) + pos - int(self.sym_starts[sym])
+
     def __call__(self, chain, i):
         j, steps = int(i), 0
         for _ in range(self.rate):
@@ -2916,21 +2949,31 @@ class HostLocate:
             chain.read(("sampled", k >> 5))
             if self.m > 0 and self.sampled[k] == j:
                 break
-            pos, sym = j, 0
-            for lvl in range(self.levels):
-                w = pos >> 5
-                chain.read(("words", lvl, w >> 5), ("prefix", lvl, w >> 5))
-                word = int(self.words[lvl, w])
-                bit = (word >> (pos & 31)) & 1
-                r1 = int(self.prefix[lvl, w]) + bin(word & ((1 << (pos & 31)) - 1)).count("1")
-                pos = int(self.zcount[lvl]) + r1 if bit else pos - r1
-                sym = (sym << 1) | bit
-            chain.read(("counts", sym >> 5), ("sym_starts", sym >> 5))
-            j = int(self.counts[sym]) + pos - int(self.sym_starts[sym])
+            j = self.lf(chain, j)
             steps += 1
         r = min(max(chain.search("sampled", self.sampled, j), 0), self.m - 1)
         chain.read(("samples", r >> 5))
         return chain.search("doc_starts", self.doc_starts, int(self.samples[r]) + steps + 1) - 1
+
+    def group(self, chain, i):
+        """``rt::DaLocate::group``: the same walk by a half-warp, each
+        search a 16-way group search whose last rounds also read the entry
+        it returns (no read for the sampled test), the step that finds j
+        sampled giving the sample's rank."""
+        j, steps, r = int(i), 0, None
+        for _ in range(self.rate):
+            k, at = chain.group_search("sampled", self.sampled, j)
+            if k < self.m and at == j:
+                r = k
+                break
+            j = self.lf(chain, j)
+            steps += 1
+        if r is None:
+            r = chain.group_search("sampled", self.sampled, j)[0]
+        r = min(max(r, 0), self.m - 1)
+        chain.read(("samples", r >> 5))
+        return chain.group_search("doc_starts", self.doc_starts,
+                                  int(self.samples[r]) + steps + 1)[0] - 1
 
 
 def host_stored_da(da):
@@ -2988,6 +3031,77 @@ def host_sada_c(values, table, get_doc, lo, hi, d, max_df):
             pops_q, chains)
 
 
+def join_slowest(chain, parts):
+    """Add the slowest of ``parts`` (chains run side by side after
+    ``chain``'s reads) to ``chain``'s rounds, and every part's lines and
+    reads to its own."""
+    if not parts:
+        return
+    worst = max(parts, key=lambda c: (c.l2, c.l1))
+    chain.l2 += worst.l2
+    chain.l1 += worst.l1
+    for part in parts:
+        chain.lines |= part.lines
+        chain.reads += part.reads
+
+
+def host_sada_c_warp(values, table, source, lo, hi, d, max_df):
+    """The warp Sada-C kernel per query in Python: the recursion with each
+    interval's argmin and document resolved when it is pushed
+    (``rt::sada_c_resolve``: on a stored DA, ``source`` an int array, the
+    table's two entries, then their values and documents in one round; on
+    the CSA, ``source`` a ``HostLocate``, the RMQ, then its ``group``
+    locate).  The query's ``Chain``: the root's resolution, and per
+    reported pop the slower of its children's resolutions, one per
+    half-warp, each its own chain over the lines the query read before; a
+    pruned or invalid pop reads only shared memory, and a child the loop
+    would never pop is not resolved.  (docs rows, counts, pops, chains)."""
+    levels, n = table.shape
+    cap, max_pops = max_df + 4, 2 * max_df + 8
+    rows, cnts, pops_q, chains = [], [], [], []
+    for a0, b0 in zip(lo.tolist(), hi.tolist()):
+        chain = Chain()
+        chain.read(("lo", 0), ("hi", 0))
+
+        def resolve(ch, a, b):
+            x, y = min(max(min(a, b0 - 1), 0), n - 1), min(max(min(b, b0 - 1), 0), n - 1)
+            if isinstance(source, HostLocate):
+                k = host_rmq(ch, table, values, x, y, "c")
+                return k, source.group(ch, k)
+            lvl = min(max(max(y - x + 1, 1).bit_length() - 1, 0), levels - 1)
+            right = max(y - (1 << lvl) + 1, x)
+            ch.read(("c", lvl, x >> 5), ("c", lvl, right >> 5))
+            ia, ib = int(table[lvl, x]), int(table[lvl, right])
+            ch.read(*((arr, i >> 5) for arr in ("c.values", "da") for i in (ia, ib)))
+            k = ib if (values[ib] < values[ia] or (values[ib] == values[ia] and ib < ia)) else ia
+            return k, int(source[k])
+
+        stack = [(a0, b0 - 1, *(resolve(chain, a0, b0 - 1) if a0 < b0 else (0, 0)))]
+        seen, out, pops = set(), [], 0
+        while stack and len(out) < max_df and pops < max_pops:
+            a, b, k, g = stack.pop()
+            pops += 1
+            if a > b or a0 >= b0 or g in seen:
+                continue
+            seen.add(g)
+            out.append(g)
+            more = len(out) < max_df and pops < max_pops
+            kids = []
+            if more and k + 1 <= b and len(stack) < cap:
+                kids.append((k + 1, b))
+            if more and a <= k - 1 and len(stack) + len(kids) < cap:
+                kids.append((a, k - 1))
+            halves = [Chain(seen=chain.lines) for _ in kids]
+            stack += [(x, y, *resolve(h, x, y)) for (x, y), h in zip(kids, halves)]
+            join_slowest(chain, halves)
+        rows.append(out + [-1] * (max_df - len(out)))
+        cnts.append(len(out))
+        pops_q.append(pops)
+        chains.append(chain)
+    return (np.asarray(rows, np.int32).reshape(len(cnts), max_df), np.asarray(cnts, np.int32),
+            pops_q, chains)
+
+
 def host_ilcp_warp(vilcp, table, run_starts, get_doc, lo, hi, d, max_df):
     """The warp ILCP kernel per query in Python: the Fig-1 recursion with
     each run's DA positions taken 32 at a time, as the warp takes them.
@@ -3022,12 +3136,7 @@ def host_ilcp_warp(vilcp, table, run_starts, get_doc, lo, hi, d, max_df):
                 nvalid = min(j - k, 32)
                 lanes = [Chain(seen=chain.lines) for _ in range(nvalid)]
                 g = [get_doc(lane, k + i) for i, lane in enumerate(lanes)]
-                worst = max(lanes, key=lambda c: (c.l2, c.l1))
-                chain.l2 += worst.l2
-                chain.l1 += worst.l1
-                for lane in lanes:
-                    chain.lines |= lane.lines
-                    chain.reads += lane.reads
+                join_slowest(chain, lanes)
                 chunks += 1
                 first = nvalid
                 for i, x in enumerate(g):
@@ -3311,10 +3420,15 @@ def phase_baselines(svc, data, full_batches, large, lat, kernels):
     locate = HostLocate(csa)
     B0 = len(hlo)
 
-    def record(name, replaces, kfn, chains, out_words, shape):
+    def all_l2_ms(chains):
+        return max(c.l1 + c.l2 for c in chains) * lat["l2_ns"] * 1e-6
+
+    def record(name, replaces, kfn, chains, out_words, shape, byte_chains=None):
+        """``byte_chains``: the replay whose reads give the byte bound
+        (default ``chains``, the latency bound's)."""
         ms = cuda_time_ms(kfn, 20)
         dev_ms = queued_time_ms(kfn, 20)
-        reads = sum(c.reads for c in chains)
+        reads = sum(c.reads for c in (byte_chains or chains))
         nbytes = (reads + out_words + 2 * B0) * 4
         ops = 10 * reads
         byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
@@ -3324,25 +3438,42 @@ def phase_baselines(svc, data, full_batches, large, lat, kernels):
             replaces=replaces, launches=None, max_abs_err=0, mismatches=0, ms=ms,
             kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms[name], library_ms=None,
             bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",
-            latency_chain=rounds, latency_bound_ms=lat_ms,
-            latency_all_l2_ms=max(c.l1 + c.l2 for c in chains) * lat["l2_ns"] * 1e-6,
+            latency_chain=rounds, latency_bound_ms=lat_ms, latency_all_l2_ms=all_l2_ms(chains),
             shape=shape))
 
     def same(name, host):
         require(all(np.array_equal(x, y) for x, y in zip(host, kout[name])),
                 (name, "kernel != host replay of the recursion"))
 
-    hd, hc, pops, chains = host_sada_c(vals_h, table_h, host_stored_da(da), hlo, hhi, d, max_df)
-    same("sada_c_list", (hd, hc))
-    record("sada_c_list", "src/repro/core/listing.py:147 (XLA, sada_c_list_docs; no TPU kernel)",
-           lambda: cases["sada_c_list"][0](lo, hi), chains, B0 * (max_df + 1),
-           f"B={B0} max_df={max_df} d={d} n={n} pops={sum(pops)}")
-    hd, hc, pops, chains = host_sada_c(vals_h, table_h, locate, hlo, hhi, d, max_df)
-    same("sada_c_list[csa]", (hd, hc))
-    record("sada_c_list[csa]", "src/repro/core/listing.py:147 (XLA, sada_c_list_docs_csa; no "
-           "TPU kernel)", lambda: cases["sada_c_list[csa]"][0](lo, hi), chains,
-           B0 * (max_df + 1), f"B={B0} max_df={max_df} d={d} n={n} pops={sum(pops)} "
-           f"sample_rate={csa.sample_rate}")
+    # Sada-C: the kernel's rows against both replays of the recursion; the
+    # latency bound is the warp design's chain, the one-thread design's
+    # (the earlier kernel's) beside it, and the byte bound the one-thread
+    # replay's reads, as before
+    from repro_torch.kernels.sada_c_list import shared_bytes_per_warp
+
+    log(f"[baselines] sada_c_list: one warp (query) a block, "
+        f"shared memory a warp {shared_bytes_per_warp(d, max_df)} B")
+    for name, get_one, source, extra in (
+            ("sada_c_list", host_stored_da(da), da, ""),
+            ("sada_c_list[csa]", locate, locate, f" sample_rate={csa.sample_rate}")):
+        hd, hc, pops, one_chains = host_sada_c(vals_h, table_h, get_one, hlo, hhi, d, max_df)
+        same(name, (hd, hc))
+        wd, wc, wpops, chains = host_sada_c_warp(vals_h, table_h, source, hlo, hhi, d, max_df)
+        require(wpops == pops, (name, "the warp replay's pops differ"))
+        same(name, (wd, wc))
+        record(name, "src/repro/core/listing.py:147 (XLA, sada_c_list_docs"
+               + ("_csa" if name.endswith("[csa]") else "") + "; no TPU kernel)",
+               lambda name=name: cases[name][0](lo, hi), chains, B0 * (max_df + 1),
+               f"B={B0} max_df={max_df} d={d} n={n} pops={sum(pops)} "
+               f"reported={int(hc.sum())}{extra}", byte_chains=one_chains)
+        one_ms, one_rounds = longest(one_chains, lat)
+        records[-1].update(shared_bytes_per_warp=shared_bytes_per_warp(d, max_df),
+                           latency_bound_one_thread_ms=one_ms,
+                           latency_chain_one_thread=one_rounds,
+                           latency_all_l2_one_thread_ms=all_l2_ms(one_chains))
+        log(f"[baselines] {name} chains: warp design {records[-1]['latency_chain']} "
+            f"({records[-1]['latency_bound_ms']:.5f} ms), one thread a query {one_rounds} "
+            f"({one_ms:.5f} ms)")
     hd, hc, pops, chunks, chains = host_ilcp_warp(
         ilcp.vilcp.cpu().numpy(), ilcp.rmq.table.cpu().numpy(), ilcp.run_starts.cpu().numpy(),
         locate, hlo, hhi, d, max_df)

@@ -28,11 +28,8 @@ card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
 import tempfile
 
@@ -42,6 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
+from ab_build import build_library, ptxas_line, variant_sources  # noqa: E402
 from chip_smoke import (  # noqa: E402
     MAX_BUF, nvidia_smi_line, pdl_host_arrays, pdl_walk_ns, queued_time_ms, require,
 )
@@ -50,6 +48,7 @@ from repro_torch.kernels import pdl_gather as pg  # noqa: E402
 
 CONFIGS = ((MAX_BUF, 1024), (64, 1024), (MAX_BUF, 4), (64, 4))
 CORE, KERNELS = "retrieval_core.cuh", "retrieval_kernels.cu"
+LAUNCHERS = ("rt_pdl_gather",)
 EXPAND_CALL = ("    pdl_expand_members(p, s.node, s.off, held, cap, buf, fbuf, s.stack + lane, "
                "chunk,\n                       s.chain, lane);")
 
@@ -101,35 +100,6 @@ VARIANTS = {
 }
 
 
-def build_library(csrc: str, out: str, label: str) -> ctypes.CDLL:
-    """``csrc``'s retrieval kernels, built by nvcc into ``out``."""
-    lib = os.path.join(out, f"lib{label}.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", csrc, "-o", lib,
-                           os.path.join(csrc, KERNELS)], capture_output=True, text=True)
-    require(proc.returncode == 0, f"nvcc of {label} failed:\n{proc.stdout}{proc.stderr}")
-    report = _build.ptxas_report(proc.stdout + proc.stderr)
-    print(f"[ab] {label} ptxas: " + json.dumps([v for k, v in report.items()
-                                                if "pdl_gather" in k]), flush=True)
-    cdll = ctypes.CDLL(lib)
-    cdll.rt_pdl_gather.argtypes = _build.SIGNATURES["rt_pdl_gather"]
-    cdll.rt_pdl_gather.restype = ctypes.c_int
-    return cdll
-
-
-def variant_sources(name: str, out: str) -> str:
-    """A copy of this tree's sources with variant ``name``'s edits."""
-    dst = os.path.join(out, name)
-    shutil.copytree(_build.CSRC, dst)
-    for fname, old, new in VARIANTS[name][0]:
-        path = os.path.join(dst, fname)
-        with open(path) as f:
-            text = f.read()
-        require(text.count(old) == 1, f"variant {name}: edit not found once in {fname}")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-    return dst
-
-
 def gather_with(lib, index, csa, lo, hi, max_buf, max_cover):
     """The wrapper's launch through another library: (docs, tf, count)."""
     tensors, ints = pg.kernel_operands(index, csa)
@@ -163,8 +133,7 @@ def main() -> int:
     print(f"[ab] {smi}", flush=True)
     dev = torch.device("cuda", 0)
     _build.library()
-    print("[ab] this ptxas: " + json.dumps([v for k, v in _build.build_log.get("ptxas", {}).items()
-                                            if "pdl_gather" in k]), flush=True)
+    print(ptxas_line("this", _build.build_log.get("ptxas", {}), "pdl_gather"), flush=True)
     topk = args.pdl == "topk"
     coll = generate(paperlike_collections(scale=1.6 if topk else 3.2)["dna-p001"])
     svc = RetrievalService.build(coll, block_size=64, beta=16.0, topk_index=topk, device=dev)
@@ -183,9 +152,11 @@ def main() -> int:
     result["longest_cover"] = max((c["cover"] for c in covers),
                                   key=lambda c: c["max_member_steps"])
     with tempfile.TemporaryDirectory() as tmp:
-        builds = {d: build_library(os.path.join(d, "src", "repro_torch", "csrc"), tmp, f"other{i}")
+        builds = {d: build_library(os.path.join(d, "src", "repro_torch", "csrc"), tmp,
+                                   f"other{i}", LAUNCHERS, "pdl_gather")
                   for i, d in enumerate(args.other)}
-        builds.update({v: build_library(variant_sources(v, tmp), tmp, v) for v in args.variants})
+        builds.update({v: build_library(variant_sources(v, VARIANTS[v][0], tmp), tmp, v,
+                                        LAUNCHERS, "pdl_gather") for v in args.variants})
         diagnostic = {name: VARIANTS[name][1] if name in VARIANTS else False for name in builds}
         mism = 0
         for max_buf, max_cover in CONFIGS:

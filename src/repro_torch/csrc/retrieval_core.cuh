@@ -187,14 +187,83 @@ RT_HD int upper_bound(const int32_t* a, int len, int x) {
 }
 
 // ---------------------------------------------------------------------------
+// Group searches: lower_bound and upper_bound run by a group of `lanes`
+// lanes (a power of two, 2 to kWarp, aligned in the warp: the Sada-C
+// kernel's two half-warps).  Each round the lanes probe the ends of
+// `lanes` near-equal parts of the range (every position once it is no
+// longer than `lanes`), one pivot a lane, and a ballot over the group
+// narrows the range lanes-fold: about log_lanes(len) dependent rounds
+// instead of log2(len).  A pivot costs a multiply and a shift, no
+// division.  Every lane of the group calls it with the same operands and
+// gets the same result.  In every host pass one lane plays the group's
+// lanes in turn, so the host build checks the same arithmetic.
+// ---------------------------------------------------------------------------
+
+constexpr int kHalf = kWarp / 2;
+
+// Pivot t of a round over [lo, lo + span): lo + t when span <= lanes,
+// else the end of part t of `lanes` (t < lanes - 1); distinct and inside
+// the range.
+RT_HD int group_pivot(int lo, int span, int lanes, int t) {
+  if (span <= lanes) return lo + t;
+  return lo + (int)(((int64_t)(t + 1) * span) >> (31 - RT_CLZ((unsigned)lanes)));
+}
+
+// First k in [0, len) with a[k] >= x (kUpper: a[k] > x), len when none,
+// for lane `lane` of the group.  When k < len and `at` is given, *at =
+// a[k]: the round that set the range's end read it, so a caller's equality
+// test costs no read of its own.
+template <bool kUpper>
+RT_HD int group_search(const int32_t* a, int len, int x, int lane, int lanes, int32_t* at) {
+  int lo = 0, hi = len, at_hi = 0;
+  while (lo < hi) {
+    const int span = hi - lo, p = span <= lanes ? span : lanes - 1;
+#ifdef __CUDA_ARCH__
+    const unsigned mask = (lanes == kWarp ? 0xffffffffu : (1u << lanes) - 1u)
+                          << (lane_id() & ~(lanes - 1));
+    int v = 0;
+    bool below = false;
+    if (lane < p) {
+      v = RT_LDG(a + group_pivot(lo, span, lanes, lane));
+      below = kUpper ? v <= x : v < x;
+    }
+    const int c = __popc(__ballot_sync(mask, below) & mask);
+    const int vc = __shfl_sync(mask, v, imin(c, p - 1), lanes);
+#else
+    (void)lane;
+    int32_t v[kWarp];
+    int c = 0;
+    for (int t = 0; t < p; ++t) {
+      v[t] = RT_LDG(a + group_pivot(lo, span, lanes, t));
+      c += kUpper ? v[t] <= x : v[t] < x;
+    }
+    const int vc = v[imin(c, p - 1)];
+#endif
+    const int next_lo = c > 0 ? group_pivot(lo, span, lanes, c - 1) + 1 : lo;
+    if (c < p) {
+      hi = group_pivot(lo, span, lanes, c);
+      at_hi = vc;
+    }
+    lo = next_lo;
+  }
+  if (at) *at = at_hi;
+  return lo;
+}
+
+// ---------------------------------------------------------------------------
 // DA sources: where a listing core reads DA[k], k clamped into [0, n).  A
 // stored document array (DaStored: Sada-I-D, Sada-C-D), or a locate through
 // the CSA (DaLocate, after the CSA locate below: Sada-I-L, Sada-C-L).
 // ---------------------------------------------------------------------------
 
+// kBesideValues: whether the Sada-C kernel reads DA at both of an RMQ's
+// candidates beside their values (a stored read is cheaper than a
+// dependent round); a source that says no has group(k, lane, lanes), DA[k]
+// by a group of lanes (see group_search) resolving one position together.
 struct DaStored {
   const int32_t* da;
   int n;
+  static constexpr bool kBesideValues = true;
   RT_HD int operator()(int k) const { return RT_LDG(da + iclamp(k, 0, n - 1)); }
 };
 
@@ -437,66 +506,170 @@ RT_HD int csa_doc_of(const CsaView& c, int text_pos) {
   return lower_bound(c.doc_starts, c.doc_len, text_pos + 1) - 1;
 }
 
+// csa_locate_one by a group of lanes (see group_search), the same
+// integers: each step's search over the sampled positions is a group
+// search whose last rounds read the entry it returns, so the sampled test
+// reads nothing of its own, and the step that finds j sampled gives the
+// sample's rank too.  The LF descent stays serial (csa_lf, every lane of
+// the group reading the same words).
+RT_HD int csa_locate_group(const CsaView& c, int i, int lane, int lanes) {
+  int j = i, steps = 0, r = -1;
+  for (int s = 0; s < c.sample_rate; ++s) {
+    int32_t at = 0;
+    const int k = group_search<false>(c.sampled, c.sampled_len, j, lane, lanes, &at);
+    if (k < c.sampled_m && at == j) {
+      r = k;
+      break;
+    }
+    j = csa_lf(c, j);
+    ++steps;
+  }
+  if (r < 0) r = group_search<false>(c.sampled, c.sampled_len, j, lane, lanes, nullptr);
+  return RT_LDG(c.samples + iclamp(r, 0, c.sampled_m - 1)) + steps;
+}
+
+// csa_doc_of by a group of lanes.
+RT_HD int csa_doc_of_group(const CsaView& c, int text_pos, int lane, int lanes) {
+  return group_search<false>(c.doc_starts, c.doc_len, text_pos + 1, lane, lanes, nullptr) - 1;
+}
+
 // DA[k] = rank_B(SA[k]): the Sadakane replacement for a stored DA.
 struct DaLocate {
   CsaView c;
+  static constexpr bool kBesideValues = false;
   RT_HD int operator()(int k) const {
     return csa_doc_of(c, csa_locate_one(c, iclamp(k, 0, c.n - 1)));
+  }
+  RT_HD int group(int k, int lane, int lanes) const {
+    return csa_doc_of_group(c, csa_locate_group(c, iclamp(k, 0, c.n - 1), lane, lanes), lane,
+                            lanes);
   }
 };
 
 // ---------------------------------------------------------------------------
 // Sada-C listing (the port's own kernel; the reference's sada_c_list_docs in
 // repro/core/listing.py is XLA): Sadakane's RMQ recursion over the C array
-// with V-marking, one thread per query.
+// with V-marking, one warp per query.
 // ---------------------------------------------------------------------------
 
-// Lists the distinct documents of DA[lo, hi) in discovery order into
-// docs[0:max_df] (-1 padded) and returns their count.  The thread's stack
-// (stack_cap(max_df) intervals) and seen bitmap (ceil(d/32) words, zeroed
-// here) hold entry e at [e * stride].  The trajectory is the reference's:
-// the root interval is (lo, hi - 1); every pop counts toward pop_cap, an
-// invalid one (a > b, or lo >= hi) too; the leftmost argmin k of C over
-// the interval clamped to hi - 1 gives DA[k] (clamped into [0, n) as well,
-// so a masked (0, 0) row reads nothing out of bounds: the reference's
-// index -1 wraps, and the row pops its one invalid interval either way);
-// a seen document prunes the interval and its pushes; an unseen one is
-// reported and pushes (k+1, b), then (a, k-1), while sp < cap.
+// Int32 words of one warp's shared memory: the interval stack (four per
+// entry, 16-byte aligned) and the seen bitmap, rounded to 16 bytes.
+RT_HD int sada_c_shared_ints(int d, int max_df) {
+  return 4 * stack_cap(max_df) + ((d + 31) / 32 + 3) / 4 * 4;
+}
+
+// The leftmost argmin k of C over [a, b] clamped to hi - 1 (and into [0,
+// n)), and DA[k] into *g, by lane `lane` of a group of kHalf lanes: the
+// RMQ's two table reads (rmq_leftmost's), then its two value reads, then
+// the source's group resolution; a stored DA (kBesideValues) is read at
+// both candidates beside the values, so its resolution takes two
+// dependent rounds, not three.
 template <class Src>
-RT_HD int sada_c_list_one(const int32_t* table, const int32_t* values, int levels,
-                          int n, const Src& src, int d, int max_df, int lo, int hi,
-                          int32_t* stka, int32_t* stkb, uint32_t* seen, int stride,
-                          int32_t* docs) {
-  for (int w = 0; w < (d + 31) / 32; ++w) seen[w * stride] = 0u;
+RT_HD int sada_c_resolve(const int32_t* table, const int32_t* values, int levels, int n,
+                         const Src& src, int hi, int a, int b, int lane, int* g) {
+  const int x = iclamp(imin(a, hi - 1), 0, n - 1), y = iclamp(imin(b, hi - 1), 0, n - 1);
+  const int lvl = iclamp(31 - RT_CLZ((unsigned)imax(y - x + 1, 1)), 0, levels - 1);
+  const int ia = RT_LDG(table + (int64_t)lvl * n + x);
+  const int ib = RT_LDG(table + (int64_t)lvl * n + imax(y - (1 << lvl) + 1, x));
+  const int va = RT_LDG(values + ia), vb = RT_LDG(values + ib);
+  if constexpr (Src::kBesideValues) {
+    const int ga = src(ia), gb = src(ib);
+    const bool right = vb < va || (vb == va && ib < ia);
+    *g = right ? gb : ga;
+    return right ? ib : ia;
+  } else {
+    const int k = (vb < va || (vb == va && ib < ia)) ? ib : ia;
+    *g = src.group(k, lane, kHalf);
+    return k;
+  }
+}
+
+// Stack entry e: one 16-byte vector in the device pass.
+RT_HD void sada_c_set(int32_t* stk, int e, int a, int b, int k, int g) {
+#ifdef __CUDA_ARCH__
+  reinterpret_cast<int4*>(stk)[e] = make_int4(a, b, k, g);
+#else
+  stk[4 * e] = a;
+  stk[4 * e + 1] = b;
+  stk[4 * e + 2] = k;
+  stk[4 * e + 3] = g;
+#endif
+}
+
+RT_HD void sada_c_get(const int32_t* stk, int e, int* a, int* b, int* k, int* g) {
+#ifdef __CUDA_ARCH__
+  const int4 v = reinterpret_cast<const int4*>(stk)[e];
+  *a = v.x, *b = v.y, *k = v.z, *g = v.w;
+#else
+  *a = stk[4 * e], *b = stk[4 * e + 1], *k = stk[4 * e + 2], *g = stk[4 * e + 3];
+#endif
+}
+
+// Lists the distinct documents of DA[lo, hi) in discovery order into
+// docs[0:max_df] (-1 padded) and returns their count; every lane of the
+// warp runs it with the same values.  stk holds stack_cap(max_df) entries
+// (a, b, k, g): an interval, the leftmost argmin k of C over it and its
+// document g = DA[k], resolved when the interval is pushed (the root
+// before the loop); seen holds ceil(d/32) words, zeroed here.  The
+// trajectory is the reference's: the root interval is (lo, hi - 1); every
+// pop counts toward pop_cap, an invalid one (a > b, or lo >= hi) too; k is
+// the argmin over the interval clamped to hi - 1 (and into [0, n), so a
+// masked (0, 0) row reads nothing out of bounds: the reference's index -1
+// wraps, and the row pops its one invalid interval either way); a seen
+// document prunes the interval and its pushes; an unseen one is reported
+// and pushes (k+1, b), then (a, k-1), while sp < cap.  So a pop reads only
+// shared memory, and a reported pop resolves its children side by side:
+// the right one by lanes [0, kHalf), the left by [kHalf, kWarp), each
+// written by its group's lane 0 (sada_c_resolve: two dependent rounds on
+// a stored DA, the RMQ's two and a group locate on the CSA).  A child that
+// is not pushed, or that the loop would never pop (cnt reached max_df,
+// pops reached pop_cap), is not resolved.  `src` gives DA[k]: Sada-C-D
+// reads a stored DA (DaStored), Sada-C-L locates through the CSA
+// (DaLocate) with group searches.
+template <class Src>
+RT_HD int sada_c_list_one(const int32_t* table, const int32_t* values, int levels, int n,
+                          const Src& src, int d, int max_df, int lo, int hi, int32_t* stk,
+                          uint32_t* seen, int32_t* docs) {
+  const int lane = lane_id(), lanes = lane_count(), sub = lane % kHalf;
+  for (int w = lane; w < (d + 31) / 32; w += lanes) seen[w] = 0u;
   const int cap = stack_cap(max_df), max_pops = pop_cap(max_df);
-  stka[0] = lo;
-  stkb[0] = hi - 1;
+  int root = 0, root_doc = 0;
+  if (lo < hi)
+    root = sada_c_resolve(table, values, levels, n, src, hi, lo, hi - 1, sub, &root_doc);
+  if (lane == 0) sada_c_set(stk, 0, lo, hi - 1, root, root_doc);
+  warp_sync();
   int sp = 1, cnt = 0, pops = 0;
   while (sp > 0 && cnt < max_df && pops < max_pops) {
     --sp;
     ++pops;
-    const int a = stka[sp * stride], b = stkb[sp * stride];
+    int a, b, k, g;
+    sada_c_get(stk, sp, &a, &b, &k, &g);
     if (a > b || lo >= hi) continue;
-    const int k = rmq_leftmost(table, values, levels, n, iclamp(imin(a, hi - 1), 0, n - 1),
-                               iclamp(imin(b, hi - 1), 0, n - 1));
-    const int g = src(k);
     const int gc = iclamp(g, 0, d - 1);
-    uint32_t* word = seen + (gc >> 5) * stride;
-    if ((*word >> (gc & 31)) & 1u) continue;
-    *word |= 1u << (gc & 31);
-    docs[cnt++] = g;
-    if (k + 1 <= b && sp < cap) {
-      stka[sp * stride] = k + 1;
-      stkb[sp * stride] = b;
-      ++sp;
+    if ((seen[gc >> 5] >> (gc & 31)) & 1u) continue;
+    warp_sync();  // every lane has read the entry and the bitmap before they are written
+    if (lane == 0) {
+      seen[gc >> 5] |= 1u << (gc & 31);
+      docs[cnt] = g;
     }
-    if (a <= k - 1 && sp < cap) {
-      stka[sp * stride] = a;
-      stkb[sp * stride] = k - 1;
-      ++sp;
+    ++cnt;
+    const bool more = cnt < max_df && pops < max_pops;
+    const bool right = more && k + 1 <= b && sp < cap;
+    const bool left = more && a <= k - 1 && sp + right < cap;
+    // side 0 is the right child, side 1 the left: on the device each
+    // half-warp takes its own side, in a host pass the one lane takes both
+    // in turn
+    for (int side = lane / kHalf; side < 2; side += imax(lanes / kHalf, 1)) {
+      if (!(side == 0 ? right : left)) continue;
+      const int ca = side == 0 ? k + 1 : a, cb = side == 0 ? b : k - 1;
+      int cg;
+      const int ck = sada_c_resolve(table, values, levels, n, src, hi, ca, cb, sub, &cg);
+      if (sub == 0) sada_c_set(stk, sp + (side == 0 ? 0 : right), ca, cb, ck, cg);
     }
+    sp += right + left;
+    warp_sync();
   }
-  for (int s = cnt; s < max_df; ++s) docs[s] = -1;
+  for (int s = cnt + lane; s < max_df; s += lanes) docs[s] = -1;
   return cnt;
 }
 

@@ -57,15 +57,25 @@
 //   latency of those four dependent, scattered reads.
 //
 // sada_c_list: the port's own kernel (the reference's sada_c_list_docs,
-//   repro/core/listing.py, is XLA: the paper's Sada-C baseline).  One thread
-//   per query runs Sadakane's RMQ recursion over C (rt::sada_c_list_one),
-//   its interval stack and seen bitmap in shared memory, interleaved across
-//   the block's threads; DA[k] from a stored array (Sada-C-D) or by a CSA
+//   repro/core/listing.py, is XLA: the paper's Sada-C baseline).  One warp
+//   per query, one query a block, runs Sadakane's RMQ recursion over C
+//   (rt::sada_c_list_one); DA[k] from a stored array (Sada-C-D) or by a CSA
 //   locate (Sada-C-L), one template each.  Bound on this card: latency of
-//   the dependent pop -> RMQ (table, then values) -> DA chain, one chain per
-//   reported document; Sada-C-L adds each locate's LF walk (up to
-//   sample_rate steps, each a binary search over the samples and a wavelet
-//   descent).
+//   the dependent RMQ (table, then values) -> DA chain, one per reported
+//   document, and of L1: the chain's reads miss it once it is crowded.
+//   The design shortens the chain as the ILCP kernel's does: each stack
+//   entry holds its interval's argmin and document, resolved when it is
+//   pushed, so a pop reads only shared memory (its seen test included) and
+//   a pruned or invalid pop costs no global read; a reported pop's two
+//   children are resolved side by side, one per half-warp; a stored DA is
+//   read at both RMQ candidates beside their values (two rounds, not
+//   three); on the CSA each binary search of the locate (the sampled test
+//   of every LF step, the sample's rank, the document start) is a 16-way
+//   search by the half-warp, one pivot per lane and a ballot a round
+//   (rt::group_search), 4 rounds over the samples instead of 17.  The
+//   warp's stack and bitmap (about 5 KB at max_df 321) are the block's
+//   shared memory, and the launch asks for the L1/shared split with the
+//   most L1.
 //
 // ilcp_list also runs Sada-I-L: the same kernel instantiated on the CSA
 //   locate (rt::DaLocate), each lane of the warp locating its own position
@@ -78,9 +88,11 @@
 //   latency, one dependent word-and-prefix read per internal node, at most
 //   df (levels + 1) nodes a query.
 //
-// backward_search, rank, rmq, sada_c_list and wt_list are first versions
-// that are simple and right; cp.async/TMA staging of the wavelet levels and
-// a warp per query for the baselines are later work.
+// backward_search, rank, rmq and wt_list are first versions that are simple
+// and right; cp.async/TMA staging of the wavelet levels and a warp per
+// query for the WT lister are later work.  Like every kernel here, this
+// code is compiled and run only on the card (chip_smoke.py, the scripts);
+// the host builds of retrieval_core.cuh check the cores' arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,9 +135,8 @@ __global__ void ilcp_list_kernel(
   if (threadIdx.x == 0) cnt[q] = c;
 }
 
-// One thread per query; each thread's stack and seen bitmap interleaved
-// with its block's (entry e at e * blockDim.x), so a warp's entries fall in
-// distinct banks.
+// One warp per query, blockDim.x / kWarp queries per block; each warp's
+// stack and seen bitmap in its own slice of rt::sada_c_shared_ints ints.
 template <class Src>
 __global__ void sada_c_list_kernel(
     const int32_t* __restrict__ table, const int32_t* __restrict__ values,
@@ -133,15 +144,15 @@ __global__ void sada_c_list_kernel(
     int32_t* __restrict__ docs, int32_t* __restrict__ cnt, int B, int levels,
     int n, int d, int max_df) {
   extern __shared__ int32_t smem[];
-  const int threads = blockDim.x, t = threadIdx.x;
-  const int q = blockIdx.x * threads + t;
+  const int w = threadIdx.x / rt::kWarp;
+  const int q = blockIdx.x * (blockDim.x / rt::kWarp) + w;
   if (q >= B) return;
-  const int cap = rt::stack_cap(max_df);
-  cnt[q] = rt::sada_c_list_one(
-      table, values, levels, n, src, d, max_df, lo[q], hi[q], smem + t,
-      smem + cap * threads + t,
-      reinterpret_cast<uint32_t*>(smem + 2 * cap * threads) + t, threads,
+  int32_t* slice = smem + (int64_t)w * rt::sada_c_shared_ints(d, max_df);
+  const int c = rt::sada_c_list_one(
+      table, values, levels, n, src, d, max_df, lo[q], hi[q], slice,
+      reinterpret_cast<uint32_t*>(slice + 4 * rt::stack_cap(max_df)),
       docs + (int64_t)q * max_df);
+  if (rt::lane_id() == 0) cnt[q] = c;
 }
 
 constexpr int kWtThreads = 32;
@@ -237,19 +248,25 @@ int launch_ilcp_list(const void* vilcp, const void* table, const void* run_start
   return (int)cudaGetLastError();
 }
 
-// Shared memory per thread of the Sada-C listing: two interval stacks and
-// the seen bitmap; `threads` queries per block (the wrapper sizes it to the
-// card's limit).
+// Shared memory per warp of the Sada-C listing: the interval stack and the
+// seen bitmap; `warps` queries per block (the wrapper passes 1: more share
+// one SM's L1, and four took 1.04x one's time).  The kernel's reads are L1-bound, so it asks for the
+// L1/shared split with the most L1 (CUDA still gives the shared
+// memory a block needs): at the default split, two queries an SM took
+// 1.7x one's time on the CSA locate.
 template <class Src>
 int launch_sada_c_list(const void* table, const void* values, const Src& src,
                        const void* lo, const void* hi, void* docs, void* cnt, int B,
-                       int levels, int n, int d, int max_df, int threads,
-                       void* stream) {
-  const size_t smem = sizeof(int32_t) * (size_t)threads *
-                      (2 * (size_t)rt::stack_cap(max_df) + (d + 31) / 32);
-  const cudaError_t e = allow_shared(sada_c_list_kernel<Src>, smem);
+                       int levels, int n, int d, int max_df, int warps, void* stream) {
+  const size_t smem =
+      sizeof(int32_t) * (size_t)warps * (size_t)rt::sada_c_shared_ints(d, max_df);
+  cudaError_t e = allow_shared(sada_c_list_kernel<Src>, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(sada_c_list_kernel<Src>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxL1);
   if (e != cudaSuccess) return (int)e;
-  sada_c_list_kernel<Src><<<(B + threads - 1) / threads, threads, smem,
+  sada_c_list_kernel<Src><<<(B + warps - 1) / warps, warps * rt::kWarp, smem,
                             (cudaStream_t)stream>>>(
       (const int32_t*)table, (const int32_t*)values, src, (const int32_t*)lo,
       (const int32_t*)hi, (int32_t*)docs, (int32_t*)cnt, B, levels, n, d, max_df);
@@ -301,12 +318,13 @@ int rt_ilcp_list_csa(
                           rho, d, max_df, stream);
 }
 
-// Sada-C-D: the RMQ table and values over C ([levels, n], [n]) and DA.
+// Sada-C-D: the RMQ table and values over C ([levels, n], [n]) and DA; `warps`
+// queries per block.
 int rt_sada_c_list(const void* table, const void* values, const void* da,
                    const void* lo, const void* hi, void* docs, void* cnt, int B,
-                   int levels, int n, int d, int max_df, int threads, void* stream) {
+                   int levels, int n, int d, int max_df, int warps, void* stream) {
   return launch_sada_c_list(table, values, rt::DaStored{(const int32_t*)da, n}, lo, hi,
-                            docs, cnt, B, levels, n, d, max_df, threads, stream);
+                            docs, cnt, B, levels, n, d, max_df, warps, stream);
 }
 
 // Sada-C-L: the CSA's operands as for rt_ilcp_list_csa, then the RMQ's.
@@ -316,12 +334,12 @@ int rt_sada_c_list_csa(
     const void* doc_starts, const void* table, const void* values, const void* lo,
     const void* hi, void* docs, void* cnt, int csa_levels, int stride, int n,
     int sample_rate, int sampled_len, int sampled_m, int doc_len, int B, int levels,
-    int d, int max_df, int threads, void* stream) {
+    int d, int max_df, int warps, void* stream) {
   const rt::DaLocate src{csa_view(words, prefix, zcount, counts, sym_starts, sampled,
                                   samples, doc_starts, csa_levels, stride, n,
                                   sample_rate, sampled_len, sampled_m, doc_len)};
   return launch_sada_c_list(table, values, src, lo, hi, docs, cnt, B, levels, n, d,
-                            max_df, threads, stream);
+                            max_df, warps, stream);
 }
 
 // WT: the DA wavelet matrix's levels ([levels, stride] words and prefix,

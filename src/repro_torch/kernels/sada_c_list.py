@@ -5,13 +5,21 @@ Muthukrishnan's C array with V-marking, the paper's Sada-C-D and Sada-C-L
 baselines) in XLA.
 
 The kernel (``sada_c_list_kernel`` in ``csrc/retrieval_kernels.cu``, core
-``rt::sada_c_list_one`` in ``retrieval_core.cuh``) runs one thread per
-query, its stack and seen bitmap in shared memory, with DA[k] read from a
-stored document array or located through the CSA (one template each).  The
-plain version advances the whole batch in lockstep, one pop per query an
+``rt::sada_c_list_one`` in ``retrieval_core.cuh``) runs one warp per query,
+one query a block, its interval stack and seen bitmap in the block's
+shared memory, the rest of the SM's 256 KB left to L1.  Each
+stack entry holds its interval's argmin and document, resolved when the
+interval is pushed, so a pop reads only shared memory; a reported pop's
+two children are resolved side by side, one per half-warp.  DA[k] is read
+from a stored document array (at both RMQ candidates, beside their
+values) or located through the CSA, with every binary search of the
+locate a 16-way search by the half-warp (one template each).  The plain
+version advances the whole batch in lockstep, one pop per query an
 iteration.  Both replay the reference's trajectory (stack cap max_df + 4,
 2 max_df + 8 pops counting invalid ones, pushes right then left) and
 report documents in discovery order, so their integers are identical.
+The kernel is compiled and run only on the card, by ``chip_smoke.py`` and
+``scripts/sada_c_ab.py``.
 """
 
 from __future__ import annotations
@@ -26,14 +34,11 @@ from repro_torch.kernels.csa_view import check_csa_operands
 from repro_torch.kernels.ilcp_list import pop_cap, stack_cap
 from repro_torch.kernels.rmq import rmq_plain
 
-#: queries (threads) per block of the kernel, where shared memory allows
-THREADS = 32
-
-
-def shared_bytes_per_query(d: int, max_df: int) -> int:
-    """Two interval stacks of ``stack_cap(max_df)`` entries and the seen
-    bitmap, per thread."""
-    return 4 * (2 * stack_cap(max_df) + -(-d // 32))
+def shared_bytes_per_warp(d: int, max_df: int) -> int:
+    """One interval stack of ``stack_cap(max_df)`` entries of four int32
+    (interval, argmin, document) and the seen bitmap rounded to 16 bytes,
+    per warp (``rt::sada_c_shared_ints``)."""
+    return 4 * (4 * stack_cap(max_df) + -(-d // 128) * 4)
 
 
 def sada_c_list_plain(values, table, da, lo, hi, *, d: int, max_df: int):
@@ -114,12 +119,13 @@ def sada_c_list(values, table, da, lo, hi, *, d: int, max_df: int):
     levels, n = table.shape
     if values.shape[0] != n or hi.shape[0] != B:
         raise ValueError("sada_c_list: inconsistent operand shapes")
-    per_query = shared_bytes_per_query(d, max_df)
-    threads = min(THREADS, _build.MAX_SHARED_BYTES // per_query)
-    if threads < 1:
-        raise ValueError(f"sada_c_list: max_df={max_df} and d={d} need {per_query} bytes "
-                         f"of shared memory per query, over the card's "
-                         f"{_build.MAX_SHARED_BYTES}")
+    # one query (warp) a block: more warps share one SM's L1, and at phase
+    # 7's shape four a block took 1.04-1.05x one's time on the CSA locate
+    # (PERF.md, row 8)
+    if shared_bytes_per_warp(d, max_df) > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"sada_c_list: max_df={max_df} and d={d} need "
+                         f"{shared_bytes_per_warp(d, max_df)} bytes of shared memory per "
+                         f"query, over the card's {_build.MAX_SHARED_BYTES}")
     docs = torch.empty((B, max_df), dtype=IDX, device=dev)
     cnt = torch.empty(B, dtype=IDX, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -130,7 +136,7 @@ def sada_c_list(values, table, da, lo, hi, *, d: int, max_df: int):
             raise ValueError("sada_c_list: the CSA and C differ in length")
         ptrs, ints = check_csa_operands(da, dev)
         err = _build.library().rt_sada_c_list_csa(*ptrs, *ops, *outs, *ints, B, levels, d,
-                                                  max_df, threads, stream)
+                                                  max_df, 1, stream)
         _build.check(err, "sada_c_list[csa]")
         sada_c_list.csa_launches += 1
         return docs, cnt
@@ -138,7 +144,7 @@ def sada_c_list(values, table, da, lo, hi, *, d: int, max_df: int):
     if da.shape[0] != n:
         raise ValueError("sada_c_list: DA and C differ in length")
     err = _build.library().rt_sada_c_list(*ops, da.data_ptr(), *outs, B, levels, n, d,
-                                          max_df, threads, stream)
+                                          max_df, 1, stream)
     _build.check(err, "sada_c_list")
     sada_c_list.launches += 1
     return docs, cnt

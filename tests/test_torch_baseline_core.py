@@ -1,7 +1,8 @@
 """The baseline listers' CUDA cores, compiled for the host.
 
-``rt::sada_c_list_one`` (on a stored DA and on the CSA locate, with the
-kernel's interleaved shared-memory layout), ``rt::ilcp_list_one`` on the
+``rt::sada_c_list_one`` (on a stored DA and on the CSA locate, one lane
+playing the warp, with the kernel's shared-memory layout: ``threads``
+warps per block, each its own slice), ``rt::ilcp_list_one`` on the
 CSA locate (Sada-I-L; one lane playing the warp) and ``rt::wt_list_one``
 of ``repro_torch/csrc/retrieval_core.cuh`` are built with g++ behind a C
 shim (``test_torch_kernel_core.compile_core``) and held to the port's
@@ -45,22 +46,20 @@ static rt::CsaView csa_view(const void* const* p, const int* v) {
       v[0], v[1], v[2], v[3], v[4], v[5], v[6]};
 }
 
-// Queries in groups of `threads`, each group's stacks and bitmaps laid out
-// as the kernel's shared memory: thread t's entry e at e * threads + t.
+// Queries in groups of `warps`, each group's stacks and bitmaps laid out
+// as the kernel's shared memory: warp w's slice at w * sada_c_shared_ints.
 template <class Src>
 static void sada_c_groups(const int32_t* table, const int32_t* values, const Src& src,
                           const int32_t* lo, const int32_t* hi, int32_t* docs,
                           int32_t* cnt, int B, int levels, int n, int d, int max_df,
-                          int threads) {
-  const int cap = rt::stack_cap(max_df), dw = (d + 31) / 32;
-  std::vector<int32_t> smem((std::size_t)threads * (2 * cap + dw), -7);
+                          int warps) {
+  const int slice = rt::sada_c_shared_ints(d, max_df);
+  std::vector<int32_t> smem((std::size_t)warps * slice, -7);
   for (int q = 0; q < B; ++q) {
-    const int t = q % threads;
+    int32_t* s = smem.data() + (std::size_t)(q % warps) * slice;
     cnt[q] = rt::sada_c_list_one(
-        table, values, levels, n, src, d, max_df, lo[q], hi[q], smem.data() + t,
-        smem.data() + cap * threads + t,
-        reinterpret_cast<uint32_t*>(smem.data() + 2 * cap * threads) + t, threads,
-        docs + (long)q * max_df);
+        table, values, levels, n, src, d, max_df, lo[q], hi[q], s,
+        reinterpret_cast<uint32_t*>(s + 4 * rt::stack_cap(max_df)), docs + (long)q * max_df);
   }
 }
 
