@@ -194,6 +194,36 @@ Phases (any failure exits non-zero; nothing is caught):
    ``wv`` included.  (d) ``python -m repro_torch.launch.train --arch
    smollm-135m --steps 20`` as a subprocess, exit 0.
 
+11. Llama 4 serving (after phase 10): llama4-scout-17b-a16e at full width
+   (d_model 5,120, 40 heads over 8 KV heads x 128, 16 experts of d_ff
+   8,192 with top-1 routing plus the shared expert, vocab 202,048, chunks
+   of 8,192 on the three local layers of each group of four, the fourth
+   global and NoPE), its depth cut from 48 to 8 layers (two groups; 19.7B
+   parameters, 39.4 GB in bf16), bf16, seeded random weights,
+   ``attention_impl="flash"``.  (a) One ``forward_prefill`` of 1 x 16,384
+   tokens (two chunks on each local layer) into a cache of 16,400, then
+   16 greedy ``forward_decode`` steps (the first opens a new local chunk);
+   (b) 4 x 8,192 tokens (T = 32,768, capacity 2,560), then 8 steps.  Each:
+   exactly 8 flash launches per prefill, all on the Hopper kernel, none per
+   decode step; prefill s and tokens/s, the decode median, peak memory and
+   the tokens each MoE layer's capacity dropped.  One prefill of (a)
+   profiled: wall, device time, busy share and device time by class
+   (flash, GEMMs, MoE sort, scatter/gather, the rest).  (d) The Hopper
+   kernel against the plain version on layer 0's chunked-local q/k/v
+   ([2, 40, 8,192, 128] views) and layer 3's global q/k/v ([1, 40, 16,384,
+   128]) of (a), within 2 bf16 ulps, timed beside SDPA.  (c) In f32 at
+   full width, one group (4 layers, 43.5 GB of weights, made after (a) and
+   (b)'s are freed), 1 x 16,384 tokens: the flash path (the SIMT kernel)
+   against the ``"xla"`` path, the routing of every MoE layer first (each
+   token's expert and whether it is kept, equal; a differing token is
+   reported with its top-2 gate margin), then the last-token logits within
+   1e-3; then 4 decode steps after an 8,188-token prefill against
+   ``forward_prefill`` of 8,189 .. 8,192 tokens (one chunk), with the
+   capacity factor at E so that no prefill drops a token (decode never
+   drops one: the reference's ``S == 1`` branch).  (e) ``python -m
+   repro_torch.launch.train --arch llama4-scout-17b-a16e --steps 20`` as a
+   subprocess, exit 0.
+
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -264,6 +294,11 @@ TRAIN_RESUME_TOL = 1e-2       # resumed bf16 losses against the uninterrupted ru
 TRAIN_PARITY_BOUND = 0.25     # compressed against uncompressed (the reference's bound)
 TRAIN_CLI_STEPS = 20
 TRAIN_CLI_ARGS = ()           # extra flags of the training CLI's run
+L4_LAYERS = 8                 # llama4-scout's 48 layers cut to two groups
+L4_RUNS = {"long": (1, 16384, 16), "batch": (4, 8192, 8)}  # prompts, tokens, decode steps
+L4_CHECK_TOKENS = 16384       # (c) f32 flash against "xla", one group
+L4_DECODE_CHECK = (8188, 4)   # (c) prompt and decode steps, all in one chunk
+L4_CLI_STEPS = 20
 FLASH_F32_TOL = 2e-5
 BAG_F32_TOL = 1e-6
 BF16_ULPS = 2
@@ -2765,6 +2800,274 @@ def phase_train(dev, fa, cfg, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
     return launches, runs
 
 
+#: device-time classes of a profiled LM prefill: substrings of kernel names
+PROFILE_CLASSES = {
+    "flash": ("flash",),
+    "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
+    "moe_sort": ("sort", "radix"),
+    "scatter_gather": ("index", "scatter", "gather"),
+}
+
+
+def device_ms_by_class(prof: dict) -> dict:
+    """A profile's device ms per call by ``PROFILE_CLASSES`` (the first
+    class whose substring a kernel's lower-cased name holds), the others
+    under ``rest``."""
+    out = dict.fromkeys([*PROFILE_CLASSES, "rest"], 0.0)
+    for name, ms in prof["by_kernel_ms"].items():
+        low = name.lower()
+        key = next((c for c, subs in PROFILE_CLASSES.items() if any(x in low for x in subs)),
+                   "rest")
+        out[key] += ms
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routes(transformer):
+    """Every ``Route`` the model's MoE layers make inside the block, in
+    call order (a recording stand-in for ``transformer._route``)."""
+    routes, route = [], transformer._route
+
+    def recording(*a):
+        r = route(*a)
+        routes.append(r)
+        return r
+
+    transformer._route = recording
+    try:
+        yield routes
+    finally:
+        transformer._route = route
+
+
+def route_differences(got, want) -> list:
+    """Per MoE layer whose routing differs (a token's expert or whether it
+    is kept): (layer, first tokens, their top-2 gate margins in ``want``)."""
+    out = []
+    for layer, (a, b) in enumerate(zip(got, want)):
+        bad = ((a.top != b.top) | (a.kept() != b.kept())).nonzero().flatten()
+        if bad.numel():
+            g = b.gate[bad].sort(dim=-1).values
+            out.append((layer, bad[:8].tolist(), (g[:8, -1] - g[:8, -2]).tolist()))
+    return out
+
+
+def phase_llama4(dev, fa, cfg, runs=L4_RUNS, check_tokens=L4_CHECK_TOKENS,
+                 decode_check=L4_DECODE_CHECK, cli_steps=L4_CLI_STEPS):
+    """Phase 11: Llama 4 serving at full width (``cfg``: its depth cut).
+    (a), (b): prefill and greedy decode per entry of ``runs``, launches,
+    drops, times; one prefill of the first run profiled; (d) the Hopper
+    kernel on layer 0's chunked-local and layer 3's global q/k/v of it; (c)
+    the f32 checks on one group; (e) the training CLI.  Returns the
+    launches of (a) and (b) and the numbers."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    import repro_torch.models.transformer as transformer
+    from repro_torch.kernels.flash_attention import flash_attention_plain, flash_route
+    from repro_torch.models.transformer import (
+        forward_decode, forward_prefill, init_params, moe_capacity,
+    )
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    E = cfg.moe.n_experts
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out = {"card": card, "layers": cfg.n_layers, "param_count": cfg.param_count(),
+           "active_param_count": cfg.active_param_count(), "param_gb": nbytes / 1e9}
+    log(f"[llama4] {cfg.name}: {cfg.n_layers} layers ({cfg.n_groups} groups: local positions "
+        f"{cfg.local_positions} of {cfg.period}, chunk {cfg.local_chunk}) x d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV) x {cfg.head_dim}, {E} experts of d_ff "
+        f"{cfg.moe.d_ff_expert or cfg.d_ff} + shared, vocab {cfg.vocab}; {cfg.param_count():,} "
+        f"parameters ({cfg.active_param_count():,} active a token), {nbytes / 1e9:.2f} GB in "
+        f"{cfg.param_dtype}; init {time.perf_counter() - t0:.2f} s; {card}")
+    prompts = {}
+    fa.launches = fa.hopper_launches = 0  # the Llama 4 serving path's run starts here
+    for label, (B, S, steps) in runs.items():
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+        prompts[label] = tokens
+        torch.cuda.reset_peak_memory_stats()
+        before, hopper_before = fa.launches, fa.hopper_launches
+        with recorded_routes(transformer) as routes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = forward_prefill(cfg, params, tokens, max_seq=S + steps)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        require((fa.launches - before, fa.hopper_launches - hopper_before)
+                == (cfg.n_layers, cfg.n_layers),
+                (label, "flash launches (all, Hopper) per prefill", fa.launches - before,
+                 fa.hopper_launches - hopper_before))
+        require(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                (label, "prefill logits"))
+        require(len(routes) == cfg.n_layers, (label, "routed layers", len(routes)))
+        cap = moe_capacity(cfg, B * S)
+        dropped = [int((~r.keep).sum()) for r in routes]
+        busiest = [int(torch.bincount(r.top, minlength=E).max()) for r in routes]
+        del routes
+        tok = logits.argmax(-1)
+        step_ms = []
+        for i in range(steps):
+            before, hopper_before = fa.launches, fa.hopper_launches
+            t0 = time.perf_counter()
+            logits, cache = forward_decode(cfg, params, tok, cache, S + i)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            require(fa.launches == before and fa.hopper_launches == hopper_before,
+                    (label, "flash launched in a decode step"))
+        require(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                (label, "decode logits"))
+        med = float(np.median(step_ms))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[label] = dict(
+            batch=B, prompt=S, steps=steps, capacity=cap, prefill_s=prefill_s,
+            prefill_tok_s=B * S / prefill_s, decode_step_ms=step_ms, decode_median_ms=med,
+            decode_tok_s=B * 1e3 / med, peak_gib=peak, dropped_per_layer=dropped,
+            busiest_expert_tokens=busiest)
+        log(f"[llama4] ({label}) {B} x {S} tokens: prefill {prefill_s:.3f} s "
+            f"({B * S / prefill_s:,.0f} tokens/s), {cfg.n_layers} flash launches, all Hopper; "
+            f"{steps} decode steps from t = {S} (t // chunk = {S // cfg.local_chunk}), median "
+            f"{med:.2f} ms a step ({B * 1e3 / med:,.1f} tokens/s; steps "
+            + " ".join(f"{x:.1f}" for x in step_ms) + f" ms), no flash launch; capacity {cap} "
+            f"of {B * S} tokens over {E} experts: dropped per layer {dropped}, busiest expert's "
+            f"tokens {busiest}; peak device memory {peak:.2f} GiB")
+        del logits, cache
+    launches = {"flash_attention": fa.launches}
+    require(fa.hopper_launches == fa.launches, ("flash launches off the Hopper kernel",
+                                                fa.launches, fa.hopper_launches))
+
+    # where a prefill's time goes: the first run's prompt once more, profiled
+    first = next(iter(runs))
+    prof = profile_calls(lambda: forward_prefill(cfg, params, prompts[first]), 1)
+    split = device_ms_by_class(prof)
+    busy = prof["device_ms"] / prof["wall_ms"] if prof["device_ms"] else None
+    top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:8]
+    out[first].update(profiled_prefill_wall_ms=prof["wall_ms"],
+                      profiled_prefill_device_ms=prof["device_ms"], busy_share=busy,
+                      profiled_prefill_activities=prof["kernels_per_call"],
+                      device_ms_by_class=split, top_device_ms={k[:80]: v for k, v in top})
+    log(f"[llama4] ({first}) prefill profiled: wall {prof['wall_ms']:.2f} ms, device "
+        f"{prof['device_ms']} ms in {prof['kernels_per_call']:.0f} device activities (busy share "
+        f"{busy}); device ms by class " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + "; top " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top) + f"; {card}")
+
+    # (d) the Hopper kernel on layer 0's chunked-local and layer 3's global
+    # q/k/v of the first run (taken from one more prefill, after the counts)
+    captured, model_fa = [], transformer.flash_attention
+
+    def capture(q, k, v, **kw):
+        if len(captured) < cfg.period:
+            captured.append((q, k, v))
+        return model_fa(q, k, v, **kw)
+
+    transformer.flash_attention = capture
+    try:
+        forward_prefill(cfg, params, prompts[first])
+    finally:
+        transformer.flash_attention = model_fa
+    del params, prompts
+    kernel = {}
+    for label, (q, k, v) in (("local", captured[0]), ("global", captured[cfg.period - 1])):
+        Bq, H, S, Dh = q.shape
+        H_kv = k.shape[1]
+        require(flash_route(q, k, v) == "hopper", (label, "view not routed to Hopper"))
+        want = flash_attention_plain(q, k, v, causal=True)
+        before, hopper_before = fa.launches, fa.hopper_launches
+        got = fa(q, k, v, causal=True)
+        require((fa.launches - before, fa.hopper_launches - hopper_before) == (1, 1),
+                (label, "launch counts"))
+        u, err = bf16_ulps(got, want), max_abs(got, want)
+        del got, want
+        require(u <= BF16_ULPS, (label, "flash kernel beyond 2 bf16 ulps", u))
+        fk = lambda: fa(q, k, v, causal=True)  # noqa: E731
+        fl = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                    enable_gqa=True)
+        b_ms, b_by = flash_bound(Bq, H, H_kv, S, S, Dh, True, q.dtype)
+        r = kernel[label] = dict(
+            shape=f"B={Bq} H={H} H_kv={H_kv} S={S} Dh={Dh} causal bf16, strides "
+                  f"{tuple(q.stride())}",
+            max_abs_err=err, bf16_ulps=u, ms=cuda_time_ms(fk, 5), device_ms=queued_time_ms(fk, 5),
+            plain_ms=cuda_time_ms(lambda: flash_attention_plain(q, k, v, causal=True), 1),
+            library_ms=cuda_time_ms(fl, 5), bound_ms=b_ms, bound_by=b_by)
+        log(f"[llama4] (d) {label} layer's q/k/v, {r['shape']}: Hopper kernel vs plain max |diff| "
+            f"{err:.3e} ({u:.2f} bf16 ulps); kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f}), plain {r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); {card}")
+    out["kernel"] = kernel
+    del captured, q, k, v
+    free_device_memory()
+
+    # (c) f32 at full width, one group, off the kernel path's bf16
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    c32 = dataclasses.replace(cfg, n_layers=cfg.period, param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    p32 = init_params(c32, gen, dev)
+    T = check_tokens
+    tokens = torch.randint(0, cfg.vocab, (1, T), generator=gen, device=dev)
+    before, hopper_before = fa.launches, fa.hopper_launches
+    with recorded_routes(transformer) as flash_routes:
+        flash, _ = forward_prefill(c32, p32, tokens)
+    require((fa.launches - before, fa.hopper_launches - hopper_before) == (cfg.period, 0),
+            ("f32 flash launches (all, Hopper)", fa.launches - before))
+    with recorded_routes(transformer) as xla_routes:
+        xla, _ = forward_prefill(dataclasses.replace(c32, attention_impl="xla"), p32, tokens)
+    diffs = route_differences(flash_routes, xla_routes)
+    c_dropped = [int((~r.keep).sum()) for r in xla_routes]
+    del flash_routes, xla_routes
+    log(f"[llama4] (c) f32, 1 x {T}, {c32.n_layers} layers: routing flash vs xla path, "
+        f"{'equal in every MoE layer' if not diffs else f'differs: {diffs}'} (capacity "
+        f"{moe_capacity(c32, T)}, dropped per layer {c_dropped})")
+    require(not diffs, ("f32 routing flash vs xla", diffs))
+    err_xla = max_abs(flash, xla)
+    log(f"[llama4] (c) last-token logits, flash vs xla path, max |diff| {err_xla:.3e} (max "
+        f"|logit| {float(xla.abs().max()):.3f}, tolerance {LM_F32_TOL})")
+    require(err_xla <= LM_F32_TOL, ("f32 flash vs xla logits", err_xla))
+    del flash, xla
+    # decode against prefill, no capacity drops in either (decode never drops)
+    nodrop = dataclasses.replace(c32, moe=dataclasses.replace(c32.moe, capacity_factor=float(E)))
+    P, n = decode_check
+    tokens = torch.randint(0, cfg.vocab, (1, P + n), generator=gen, device=dev)
+    _, cache = forward_prefill(nodrop, p32, tokens[:, :P], max_seq=P + n)
+    errs = []
+    for i in range(n):
+        dec, cache = forward_decode(nodrop, p32, tokens[:, P + i], cache, P + i)
+        pre, _ = forward_prefill(nodrop, p32, tokens[:, :P + i + 1])
+        errs.append(max_abs(dec, pre))
+    log(f"[llama4] (c) f32 decode t = {P} .. {P + n - 1} (chunk {cfg.local_chunk}) vs "
+        f"forward_prefill of the tokens so far, capacity factor {float(E)}, max |diff| per step "
+        + " ".join(f"{e:.3e}" for e in errs) + f" (tolerance {LM_F32_TOL})")
+    require(max(errs) <= LM_F32_TOL, ("f32 decode vs prefill logits", errs))
+    out.update(f32_flash_vs_xla=err_xla, f32_decode_vs_prefill=max(errs),
+               f32_routes_equal=not diffs, f32_dropped_per_layer=c_dropped)
+    del p32, cache, dec, pre
+    free_device_memory()
+
+    # (e) the training CLI on the reduced config
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama4-scout-17b-a16e",
+             "--steps", str(cli_steps), "--ckpt", ckpt, *TRAIN_CLI_ARGS],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            capture_output=True, text=True, timeout=300)
+    require(res.returncode == 0, ("llama4 training CLI", res.returncode, res.stderr[-2000:]))
+    line = res.stdout.strip().splitlines()[-1]
+    require(line.startswith(f"[llama4-scout-17b-a16e] steps={cli_steps} loss "),
+            ("CLI output", line))
+    out["cli_s"] = time.perf_counter() - t0
+    log(f"[llama4] (e) python -m repro_torch.launch.train --arch llama4-scout-17b-a16e --steps "
+        f"{cli_steps}: exit 0 in {out['cli_s']:.1f} s; {line}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[llama4] phase body {out['phase_s']:.1f} s; {nvidia_smi_line()}")
+    return launches, out
+
+
 def padded_bags(gen, rows, B, L, dev):
     """int32 [B, L] indices into ``rows`` rows; for L > 1, each bag has a
     seeded length in 1..L and -1 padding after it."""
@@ -3985,7 +4288,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import dataclasses
 
-    from repro_torch.configs import llama3_2_3b, smollm_135m
+    from repro_torch.configs import llama3_2_3b, llama4_scout_17b_a16e, smollm_135m
     from repro_torch.kernels.backward_search import backward_search
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.flash_attention import flash_attention
@@ -4087,8 +4390,17 @@ def main() -> int:
         "vjp_ms_per_layer", "vjp_max_bf16_ulps", "flash_fwd_device_ms_per_launch",
         "step_median_s", "tokens_per_s", "peak_gib", "f32_loss_rel")})
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    free_device_memory()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama4_scout_17b_a16e.config(), n_layers=L4_LAYERS,
+                              attention_impl="flash")
+    paths["lm_llama4"], l4_runs = phase_llama4(dev, flash_attention, cfg)
+    flash_record.update({f"llama4_{label}_{k}": v for label, r in l4_runs["kernel"].items()
+                         for k, v in r.items()})
+    log(f"[llama4] phase {time.perf_counter() - t0:.1f} s")
     log("[lm] runs " + json.dumps(lm_runs))
     log("[train] runs " + json.dumps(train_runs))
+    log("[llama4] runs " + json.dumps(l4_runs))
     for r in records:
         # each kernel's launches on the paths that run it, each path counted
         # from 0 just before it ran

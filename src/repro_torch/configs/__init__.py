@@ -1,1 +1,2 @@
-"""repro_torch.configs: the dense, period-1 LM configurations."""
+"""repro_torch.configs: the LM configurations (dense Llama 3.x, SmolLM and
+Mistral; Llama 4 Scout and Maverick, MoE with chunked-local attention)."""

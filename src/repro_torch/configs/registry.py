@@ -2,7 +2,7 @@
 ``ALL_ARCHS`` and ``get_arch_module``).
 
 ``ALL_ARCHS`` names the reference's architectures.  ``get_arch_module``
-returns the config module of the two ported LMs and raises
+returns the config module of the five ported LMs and raises
 ``NotImplementedError`` naming the ROADMAP item for the others.  The
 reference's shape table and cells (abstract inputs, partition specs,
 roofline metadata) wait for ROADMAP A12.5.
@@ -14,15 +14,15 @@ import importlib
 
 #: ported architectures: their config modules
 _PORTED = {
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b_a17b",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
 }
 
 #: the others: (family, ROADMAP item that ports them)
 _WAITING = {
-    "llama4-scout-17b-a16e": ("lm", "A12.2"),
-    "llama4-maverick-400b-a17b": ("lm", "A12.2"),
-    "mistral-large-123b": ("lm", "A12.5"),
     "nequip": ("gnn", "A12.5"),
     "fm": ("recsys", "A12.4"),
     "sasrec": ("recsys", "A12.4"),

@@ -1,38 +1,54 @@
-"""Llama-family decoder transformers, dense subset (counterpart of
+"""Llama-family decoder transformers (counterpart of
 ``repro.models.transformer``): the training step ``forward_train`` and the
 serving steps ``forward_prefill`` and ``forward_decode`` of dense LMs
-(Llama 3.x, SmolLM).
+(Llama 3.x, Mistral, SmolLM) and of MoE LMs with top-1 routing, a shared
+expert and a 3:1 chunked-local:global attention interleave (Llama 4 Scout
+and Maverick).
 
 Parameters are a plain dict with the reference's keys and layouts:
 ``embed`` [V, D], ``final_norm`` [D], ``lm_head`` [D, V] (absent when tied)
 and, per sub-layer position ``p`` of a group, ``blocks/pos{p}`` holding
 tensors stacked over the ``n_groups`` groups: ``attn_norm``/``ffn_norm``
 [G, D], ``wq`` [G, D, H, Dh], ``wk``/``wv`` [G, D, K, Dh], ``wo``
-[G, H, Dh, D], ``w_gate``/``w_up`` [G, D, F], ``w_down`` [G, F, D].  The KV
+[G, H, Dh, D], ``w_gate``/``w_up`` [G, D, F], ``w_down`` [G, F, D]; an MoE
+layer has instead ``router`` [G, D, E], ``we_gate``/``we_up`` [G, E, D, F_e],
+``we_down`` [G, E, F_e, D] and, with a shared expert, ``ws_gate``/``ws_up``
+[G, D, F], ``ws_down`` [G, F, D] (F_e is ``d_ff_expert or d_ff``).  The KV
 cache is ``{pos{p}: {"k", "v"}}`` of [G, B, S_max, K, Dh].  Groups run as a
 Python loop (the reference's ``lax.scan``); in ``forward_train`` each group
 is one non-reentrant ``torch.utils.checkpoint`` (the reference's
 ``nothing_saveable`` remat): only the group's input is kept, and the
 backward reruns the group's forward, its attention kernel included.
 
-Attention: GQA with RoPE on every layer of a dense (period-1) model.
-``attention_impl="flash"`` runs training and prefill attention through the
-hand-written kernel (``repro_torch.kernels.flash_attention``, differentiable
-by the reference's recompute VJP); ``"xla"`` is the reference's blockwise
-path in plain tensor code, differentiated by autograd.  Decode attention is
-plain tensor code on both, as in the reference.
+Attention: GQA with RoPE on every layer of a dense (period-1) model and on
+the local layers of a Llama 4 group (its global layers are NoPE: iRoPE).  A
+local layer attends causally within chunks of ``local_chunk`` positions
+(``_chunked_local_attention``: one attention call over the [B * n_chunks,
+C] view).  ``attention_impl="flash"`` runs training and prefill attention
+through the hand-written kernel (``repro_torch.kernels.flash_attention``,
+differentiable by the reference's recompute VJP); ``"xla"`` is the
+reference's blockwise path in plain tensor code, differentiated by
+autograd.  Decode attention is plain tensor code on both, as in the
+reference, a local layer masking the keys before its chunk's start.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-MoE (``_moe_ffn``, ``_moe_ffn_ep``), chunked-local attention and expert
-parallelism (``ep_mesh``).
+MoE (``_moe_ffn``): the reference's local, one-device dispatch in plain
+tensor code (the reference has no kernel for it): top-1 routing, tokens
+stably sorted by expert, each expert's first ``capacity`` tokens in an
+[E, capacity, D] buffer, batched expert products, the gated combine, the
+shared expert and the Switch auxiliary loss; a one-token-per-sequence call
+(decode) computes every expert and drops nothing.
+
+Not ported: expert parallelism (``ep_mesh``, the reference's
+``_moe_ffn_ep``) raises ``NotImplementedError`` naming ROADMAP A12.2b.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import resolve_device
@@ -83,13 +99,22 @@ class LMConfig:
         return self.n_layers // self.period
 
     def param_count(self) -> int:
+        return self._count(self.moe.n_experts if self.moe else 0)
+
+    def active_param_count(self) -> int:
+        """Parameters one token runs through (``top_k`` routed experts, the
+        shared expert and the router), the 6*N_active*D convention."""
+        return self._count(self.moe.top_k if self.moe else 0)
+
+    def _count(self, routed: int) -> int:
+        """Parameters with ``routed`` experts of each MoE layer counted."""
         dh = self.head_dim
         attn = self.d_model * dh * (self.n_heads + 2 * self.n_kv_heads) + (
             self.n_heads * dh * self.d_model
         )
         if self.moe:
             dff = self.moe.d_ff_expert or self.d_ff
-            ffn = 3 * self.d_model * dff * self.moe.n_experts
+            ffn = 3 * self.d_model * dff * routed
             if self.moe.shared_expert:
                 ffn += 3 * self.d_model * self.d_ff
             ffn += self.d_model * self.moe.n_experts  # router
@@ -101,14 +126,9 @@ class LMConfig:
 
 
 def _require_ported(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported (ROADMAP A12.2)")
-    if cfg.local_positions:
-        raise NotImplementedError(
-            f"{cfg.name}: chunked-local attention is not ported (ROADMAP A12.3)")
     if cfg.ep_mesh is not None:
         raise NotImplementedError(
-            f"{cfg.name}: expert parallelism (ep_mesh) is not ported (ROADMAP A12.2)")
+            f"{cfg.name}: expert parallelism (ep_mesh) is not ported (ROADMAP A12.2b)")
     if cfg.attention_impl not in ("xla", "flash"):
         raise ValueError(f"attention_impl must be 'xla' or 'flash', got {cfg.attention_impl!r}")
 
@@ -129,10 +149,16 @@ def param_shapes(cfg: LMConfig) -> dict:
         "wv": (G, d, cfg.n_kv_heads, dh),
         "wo": (G, cfg.n_heads, dh, d),
         "ffn_norm": (G, d),
-        "w_gate": (G, d, cfg.d_ff),
-        "w_up": (G, d, cfg.d_ff),
-        "w_down": (G, cfg.d_ff, d),
     }
+    if cfg.moe:
+        E, dff = cfg.moe.n_experts, cfg.moe.d_ff_expert or cfg.d_ff
+        block.update(router=(G, d, E), we_gate=(G, E, d, dff), we_up=(G, E, d, dff),
+                     we_down=(G, E, dff, d))
+        if cfg.moe.shared_expert:
+            block.update(ws_gate=(G, d, cfg.d_ff), ws_up=(G, d, cfg.d_ff),
+                         ws_down=(G, cfg.d_ff, d))
+    else:
+        block.update(w_gate=(G, d, cfg.d_ff), w_up=(G, d, cfg.d_ff), w_down=(G, cfg.d_ff, d))
     shapes = {
         "embed": (cfg.vocab, d),
         "final_norm": (d,),
@@ -210,6 +236,23 @@ def _gqa_attention(cfg: LMConfig, q, k, v, q_block: int = 512):
     return out
 
 
+def _chunked_local_attention(cfg: LMConfig, q, k, v):
+    """Causal attention within chunks of ``C = min(local_chunk, S)``
+    positions (Llama 4's local layers): q [B, S, H, Dh] and k/v [B, S, K,
+    Dh] viewed as [B * S/C, C, ...] (no copy) and taken by one
+    ``_gqa_attention`` call, so that on ``"flash"`` every chunk of every
+    sequence is one launch.  ``S`` must be a multiple of ``C`` (the
+    reference asserts it)."""
+    B, S, H, Dh = q.shape
+    C = min(cfg.local_chunk, S)
+    if S % C:
+        raise ValueError(f"{cfg.name}: sequence {S} is not a multiple of the local chunk {C}")
+    nc, K = S // C, k.shape[2]
+    out = _gqa_attention(cfg, q.reshape(B * nc, C, H, Dh), k.reshape(B * nc, C, K, Dh),
+                         v.reshape(B * nc, C, K, Dh))
+    return out.reshape(B, S, H, Dh)
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -228,7 +271,8 @@ def _attn_out(attn, wo):
 
 def _qkv(cfg: LMConfig, pos: int, p, x, positions):
     """A layer's normed q [B, S, H, Dh] and k, v [B, S, K, Dh], RoPE
-    applied on dense (period-1) models."""
+    applied on dense (period-1) models and on local layers (a Llama 4
+    global layer is NoPE)."""
     h = rms_norm(x, p["attn_norm"])
     q, k, v = _project(h, p["wq"]), _project(h, p["wk"]), _project(h, p["wv"])
     if pos in cfg.local_positions or cfg.period == 1:
@@ -243,13 +287,105 @@ def _dense_ffn(cfg: LMConfig, p, x):
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
 
 
+def moe_capacity(cfg: LMConfig, T: int, capacity_factor: float | None = None) -> int:
+    """Tokens an expert takes out of ``T``: ``max(1, min(T, int(T / E *
+    capacity_factor)))`` in Python float arithmetic (the reference's)."""
+    cf = cfg.moe.capacity_factor if capacity_factor is None else capacity_factor
+    return max(1, min(T, int(T / cfg.moe.n_experts * cf)))
+
+
+class Route(NamedTuple):
+    """One MoE layer's routing of T tokens.  ``gate`` [T, E] f32, ``top``
+    [T] the chosen expert, ``top_w`` [T] its gate.  With a capacity:
+    ``perm`` [T] the tokens stably sorted by expert, and per sorted token
+    ``keep`` (within its expert's capacity) and ``dest`` (its row of the
+    [E * cap] buffer; ``E * cap``, a spare row, when dropped); ``None``
+    without one."""
+    gate: torch.Tensor
+    top: torch.Tensor
+    top_w: torch.Tensor
+    perm: Optional[torch.Tensor]
+    keep: Optional[torch.Tensor]
+    dest: Optional[torch.Tensor]
+
+    def kept(self) -> torch.Tensor:
+        """[T] bool in token order: the token reaches its expert."""
+        if self.keep is None:
+            return torch.ones_like(self.top, dtype=torch.bool)
+        return torch.empty_like(self.keep).index_put_((self.perm,), self.keep)
+
+
+def _route(cfg: LMConfig, router, xf, cap: int | None) -> Route:
+    """Top-1 routing of tokens xf [T, D] (lines 310-338 of
+    ``repro.models.transformer``).  The scores are formed in xf's dtype and
+    only then cast to f32; ``top`` is the gate's first maximum, whatever
+    ``top_k`` says.  With ``cap``, the slots: a stable sort by expert, each
+    expert's start by ``searchsorted``, a token's slot its sorted position
+    less its expert's start."""
+    E = cfg.moe.n_experts
+    gate = torch.softmax((xf @ router).float(), dim=-1)
+    top = torch.argmax(gate, dim=-1)
+    top_w = gate.gather(-1, top[:, None])[:, 0]
+    if cap is None:
+        return Route(gate, top, top_w, None, None, None)
+    perm = torch.argsort(top, stable=True)
+    top_sorted = top[perm]
+    start = torch.searchsorted(top_sorted, torch.arange(E, device=xf.device))
+    slot = torch.arange(top.shape[0], device=xf.device) - start[top_sorted]
+    keep = slot < cap
+    dest = torch.where(keep, top_sorted * cap + slot, E * cap)
+    return Route(gate, top, top_w, perm, keep, dest)
+
+
+def _moe_ffn(cfg: LMConfig, p, x, capacity_factor: float | None = None):
+    """Top-1 routed expert plus the shared expert on x [B, S, D], and the
+    Switch auxiliary loss ``E * sum_e f_e * P_e`` (f_e the share of tokens
+    routed to e, P_e the mean gate; 0.0 on the decode branch).  The
+    reference's ``_moe_ffn`` (``repro.models.transformer``, line 292) in
+    plain tensor code.
+
+    ``S == 1`` (decode, or a one-token prefill): every expert for the T live
+    tokens, the chosen one selected, nothing dropped.  Otherwise the
+    capacity dispatch: the sorted tokens scattered into an [E * cap + 1, D]
+    buffer (the last row takes the dropped ones: no boolean mask, no host
+    sync), the experts as batched products over [E, cap, D], each kept
+    token's row gathered back (dropped: 0) and put in token order.  Both
+    scale by the gate in the activation dtype."""
+    B, S, D = x.shape
+    E, T = cfg.moe.n_experts, B * S
+    xf = x.reshape(T, D)
+    if S == 1:
+        r = _route(cfg, p["router"], xf, None)
+        g = F.silu(torch.matmul(xf, p["we_gate"]))                    # [E, T, F]
+        ye = torch.matmul(g * torch.matmul(xf, p["we_up"]), p["we_down"])  # [E, T, D]
+        y = ye[r.top, torch.arange(T, device=x.device)]
+        aux = 0.0
+    else:
+        cap = moe_capacity(cfg, T, capacity_factor)
+        r = _route(cfg, p["router"], xf, cap)
+        xe = xf.new_zeros(E * cap + 1, D).index_put((r.dest,), xf[r.perm])
+        xe = xe[:E * cap].view(E, cap, D)
+        g = F.silu(torch.bmm(xe, p["we_gate"]))
+        ye = torch.bmm(g * torch.bmm(xe, p["we_up"]), p["we_down"]).view(E * cap, D)
+        rows = ye[torch.where(r.keep, r.dest, 0)]
+        y = xf.new_zeros(T, D).index_put((r.perm,), torch.where(r.keep[:, None], rows, 0))
+        fe = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+            0, r.top, torch.ones(T, dtype=torch.float32, device=x.device)) / T
+        aux = E * torch.sum(fe * r.gate.mean(dim=0))
+    y = (y * r.top_w[:, None].to(x.dtype)).reshape(B, S, D)
+    if cfg.moe.shared_expert:
+        y = y + swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
+    return y, aux
+
+
 def _sublayer_train(cfg: LMConfig, pos: int, p, x, positions):
     """One decoder layer over the full sequence (training, prefill): the
-    new residual stream, the FFN's auxiliary loss and the layer's (k, v)."""
+    new residual stream, the FFN's auxiliary loss and the layer's (k, v).
+    Local layers attend within their chunks; MoE models route the FFN."""
     q, k, v = _qkv(cfg, pos, p, x, positions)
-    attn = _gqa_attention(cfg, q, k, v)
-    x = x + _attn_out(attn, p["wo"])
-    y, aux = _dense_ffn(cfg, p, rms_norm(x, p["ffn_norm"]))
+    attend = _chunked_local_attention if pos in cfg.local_positions else _gqa_attention
+    x = x + _attn_out(attend(cfg, q, k, v), p["wo"])
+    y, aux = (_moe_ffn if cfg.moe else _dense_ffn)(cfg, p, rms_norm(x, p["ffn_norm"]))
     return x + y, aux, (k, v)
 
 
@@ -354,12 +490,17 @@ def _sublayer_decode(cfg: LMConfig, pos: int, p, x, cache_kv, t: int):
 
     qg = q.reshape(B, K, cfg.n_heads // K, dh)
     logits = torch.einsum("bkrd,btkd->bkrt", qg, ck).float() * (dh ** -0.5)
-    valid = torch.arange(ck.shape[1], device=x.device) <= t
+    kpos = torch.arange(ck.shape[1], device=x.device)
+    valid = kpos <= t
+    if pos in cfg.local_positions:  # only the current chunk's keys
+        valid = valid & (kpos >= t // cfg.local_chunk * cfg.local_chunk)
     logits = torch.where(valid, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     attn = torch.einsum("bkrt,btkd->bkrd", probs, cv).reshape(B, cfg.n_heads, dh)
     x = x + _attn_out(attn, p["wo"])
     h = rms_norm(x, p["ffn_norm"])
+    if cfg.moe:
+        return x + _moe_ffn(cfg, p, h[:, None])[0][:, 0]
     return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 

@@ -191,14 +191,17 @@ def test_converter_rejects_other_layouts():
 
 
 def test_unported_layers_raise():
+    """Expert parallelism (``ep_mesh``) is the one layer option still
+    refused, naming its ROADMAP item; MoE and chunked-local layers build."""
     cfg = llama3_2_3b.reduced_config()
-    moe = dataclasses.replace(cfg, moe=ttf.MoEConfig(n_experts=4))
-    local = dataclasses.replace(cfg, period=4, local_positions=(0, 1, 2))
-    for bad, what in ((moe, "MoE"), (local, "chunked-local")):
-        with pytest.raises(NotImplementedError, match=what):
-            ttf.init_params(bad, torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            ttf.init_cache(bad, 1, 4, device="cpu")
+    ep = dataclasses.replace(cfg, moe=ttf.MoEConfig(n_experts=4), ep_mesh=object())
+    with pytest.raises(NotImplementedError, match="A12.2b"):
+        ttf.init_params(ep, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A12.2b"):
+        ttf.init_cache(ep, 1, 4, device="cpu")
+    moe_local = dataclasses.replace(cfg, moe=ttf.MoEConfig(n_experts=4), period=4,
+                                    local_positions=(0, 1, 2))
+    assert "router" in ttf.init_params(moe_local, torch.Generator(), device="cpu")["blocks"]["pos0"]
     with pytest.raises(ValueError, match="attention_impl"):
         ttf.init_params(dataclasses.replace(cfg, attention_impl="pallas"), torch.Generator(),
                         device="cpu")

@@ -444,9 +444,8 @@ def test_registry_names_the_reference_archs():
         treg.get_arch_module("gpt-5")
 
 
-WAITING = {"llama4-scout-17b-a16e": "A12.2", "llama4-maverick-400b-a17b": "A12.2",
-           "mistral-large-123b": "A12.5", "nequip": "A12.5", "fm": "A12.4",
-           "sasrec": "A12.4", "autoint": "A12.4", "dlrm-mlperf": "A12.4"}
+WAITING = {"nequip": "A12.5", "fm": "A12.4", "sasrec": "A12.4", "autoint": "A12.4",
+           "dlrm-mlperf": "A12.4"}
 
 
 @pytest.mark.parametrize("arch", sorted(WAITING))
