@@ -224,6 +224,37 @@ Phases (any failure exits non-zero; nothing is caught):
    repro_torch.launch.train --arch llama4-scout-17b-a16e --steps 20`` as a
    subprocess, exit 0.
 
+12. RecSys (after phase 11, at most 150 s): FM (39 fields x 10), SASRec
+   (1,000,000 items x 50, 2 blocks, sequences of 50), AutoInt (39 x 16, 3
+   layers, 2 heads, d_attn 32) and DLRM-MLPerf (26 tables of 187,767,399
+   rows x 128, MLPs 13-512-256-128 and 1024-1024-512-256-1) at their
+   published widths, seeded random weights; every row lookup is one
+   embedding-bag launch with bags of one.  (a) Serving, in the registry's
+   serving copy (2-D leaves of 65,536 rows or more in bf16, the rest f32;
+   every leaf drawn in bf16, so DLRM's 187,767,808 x 128 table is 48.07 GB):
+   ``serve_p99`` (512 rows) and ``serve_bulk`` (262,144) through
+   ``*_logits`` / ``sasrec_serve``, ``retrieval_cand`` (one user against
+   1,000,000 candidates of the largest field, SASRec: of the items; AutoInt
+   in 4 calls of 250,000 and DLRM in 2 of 500,000, to keep the activations
+   under the card's memory): ms (median of warm calls), rows/s, peak
+   memory, and the embedding-bag launches of every call (FM 2 a batch, 4 a
+   retrieval; SASRec 2, 2; AutoInt 1, 2; DLRM 1, 2); each lookup of the
+   batches and candidates against ``table[ids]`` bit for bit (with the
+   tables' last rows); the first 1,024 retrieval scores against the
+   scoring entry point on the same user with each candidate filled in; the
+   lookup alone at the bulk batch's ids beside ``table[ids]``.  (b)
+   Training in f32: 8 AdamW steps through ``train`` on 65,536 rows a step
+   (the registry's ``train_batch``), DLRM with each table capped at
+   1,048,576 rows (7,402,496 rows, 3.79 GB: the functional AdamW update
+   holds about 12 table-sized buffers at its peak): the launches of every
+   step (FM 2, SASRec 3, AutoInt 1, DLRM 1), finite losses, step s (median
+   of steps 2-8), rows/s, peak memory; the f32 lookups bit for bit; on
+   FM's first batch the tables' gradients through the kernel (its
+   scatter-add accumulated in f64) against an f64 gradient, beside plain
+   f32 ``table[ids]`` autograd's distance from it.  (c) ``python -m repro_torch.launch.train
+   --arch dlrm-mlperf --steps 20`` and ``--arch sasrec --steps 20`` as
+   subprocesses, exit 0.
+
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -243,7 +274,14 @@ rounding each); the resumed run's losses within 1e-2 of the uninterrupted
 run's (bf16 steps whose sums may run in another order, the embedding
 gradient's accumulation among them); compressed against uncompressed
 training, the mean of the last 4 losses within 0.25, the reference's own
-parity bound.
+parity bound.  RecSys (phase 12): lookups bit for bit; retrieval scores
+within 2^-6 (4 bf16 ulps) of the largest score of the scoring entry
+point's (their bf16 sums are grouped otherwise: the reference's own gap
+at reduced width is at most 3.5e-3 of it, tests/test_torch_recsys.py,
+and FM's at full width, 39 fields summed in bf16, about 1.1e-2); FM's
+table gradients through the kernel within 1e-6 in relative norm of an
+f64 gradient (plain f32 autograd's own sums lie 2.2e-6 from it on the
+embedding table).
 """
 
 from __future__ import annotations
@@ -4280,6 +4318,391 @@ def phase_analysis(full_svc):
     log(f"[analysis] phase body {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the recsys family served and trained at full width
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("fm", "sasrec", "autoint", "dlrm-mlperf")
+RECSYS_SERVE = {"serve_p99": 512, "serve_bulk": 262_144}   # the registry's batches
+RECSYS_CANDIDATES = 1_000_000      # the registry's retrieval_cand
+#: retrieval calls the 1M candidates are split into (activations under 80 GB)
+RECSYS_RETRIEVAL_CHUNKS = {"fm": 1, "sasrec": 1, "autoint": 4, "dlrm-mlperf": 2}
+RECSYS_REPS = {"serve_p99": 20, "serve_bulk": 5, "retrieval_cand": 3}
+RECSYS_TRAIN_BATCH = 65_536        # the registry's train_batch
+RECSYS_TRAIN_STEPS = 8
+#: DLRM trains with each table capped at this many rows: AdamW's functional
+#: update holds about 12 table-sized f32 buffers at its peak
+RECSYS_DLRM_TRAIN_CAP = 1 << 20
+RECSYS_CHECK_CANDIDATES = 1024
+#: retrieval against the batch entry point with bf16 tables: 4 bf16 ulps of
+#: the largest score (tests/test_torch_recsys.py measures the reference's
+#: own gap at reduced width, at most 3.5e-3 of it, and holds it to this;
+#: FM's at full width is about 1.1e-2)
+RECSYS_GAP_REL = 2.0 ** -6
+#: FM's table gradients through the kernel against an f64 gradient (plain
+#: autograd in f64), in relative norm
+RECSYS_GRAD_RTOL = 1e-6
+RECSYS_CLI_STEPS = 20
+RECSYS_CLI_ARCHS = ("dlrm-mlperf", "sasrec")
+RECSYS_CLI_ARGS = ()               # extra flags of the training CLI's runs
+#: embedding-bag launches per call of each entry point (one per lookup)
+RECSYS_LOOKUPS = {
+    ("fm", "score"): 2, ("fm", "retrieval"): 4, ("fm", "train"): 2,
+    ("sasrec", "score"): 2, ("sasrec", "retrieval"): 2, ("sasrec", "train"): 3,
+    ("autoint", "score"): 1, ("autoint", "retrieval"): 2, ("autoint", "train"): 1,
+    ("dlrm-mlperf", "score"): 1, ("dlrm-mlperf", "retrieval"): 2, ("dlrm-mlperf", "train"): 1,
+}
+
+
+def recsys_batch(arch, cfg, B, seed, dev=None):
+    """A ``recsys_batches`` batch of ``B``, on ``dev`` (numpy arrays for
+    ``None``); SASRec: sequences, their positives and negatives, and
+    ``target``, each sequence's last positive."""
+    from repro_torch.data.pipelines import recsys_batches
+
+    if arch == "sasrec":
+        b = next(recsys_batches((), B, seq_len=cfg.seq_len, n_items=cfg.n_items, seed=seed))
+        b["target"] = b["pos_items"][:, -1].copy()
+    else:
+        b = next(recsys_batches(cfg.vocab_sizes, B, n_dense=getattr(cfg, "n_dense", 0),
+                                seed=seed))
+    if dev is None:
+        return b
+    return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+
+def recsys_score(R, arch, cfg, params, b):
+    """The entry point that scores a batch: ``*_logits`` or
+    ``sasrec_serve``."""
+    if arch == "sasrec":
+        return R.sasrec_serve(cfg, params, {"item_seq": b["item_seq"], "target": b["target"]})
+    if arch == "dlrm-mlperf":
+        return R.dlrm_logits(cfg, params, b["dense"], b["sparse"])
+    return getattr(R, f"{arch}_logits")(cfg, params, b["sparse"])
+
+
+def recsys_retrieve(R, arch, cfg, params, user, cand, field):
+    """``*_retrieval`` of the batch ``user``'s first row against ``cand``."""
+    if arch == "sasrec":
+        return R.sasrec_retrieval(cfg, params, user["item_seq"][:1], cand)
+    if arch == "dlrm-mlperf":
+        return R.dlrm_retrieval(cfg, params, user["dense"][0], user["sparse"][0], cand, field)
+    return getattr(R, f"{arch}_retrieval")(cfg, params, user["sparse"][0], cand, field)
+
+
+def recsys_filled_in(arch, user, cand, field):
+    """``user``'s first row with each of ``cand`` filled into ``field`` (the
+    target for SASRec), as a batch for ``recsys_score``."""
+    n = cand.numel()
+    if arch == "sasrec":
+        return {"item_seq": user["item_seq"][:1].expand(n, -1).contiguous(), "target": cand}
+    out = {"sparse": user["sparse"][:1].repeat(n, 1)}
+    out["sparse"][:, field] = cand
+    if arch == "dlrm-mlperf":
+        out["dense"] = user["dense"][:1].repeat(n, 1)
+    return out
+
+
+def recsys_ids(R, arch, cfg, b):
+    """The global row ids a batch looks up in its model's big table."""
+    if arch == "sasrec":
+        return torch.cat([b["item_seq"].reshape(-1), b["target"].reshape(-1)])
+    offsets, _ = R._field_offsets(cfg.vocab_sizes, b["sparse"].device)
+    return (b["sparse"] + offsets[None, :]).reshape(-1)
+
+
+def check_lookup_bits(R, eb, table, ids, label):
+    """``lookup`` through the kernel against ``table[ids]``, bit for bit
+    (uncounted: a comparison, not the main path); also the table's last
+    rows, whose element offsets pass 2^31 on the big tables."""
+    rows = table.shape[0]
+    ids = torch.cat([ids.reshape(-1), torch.arange(max(rows - 3, 0), rows, device=ids.device,
+                                                    dtype=ids.dtype)])
+    with uncounted([eb]):
+        before = eb.launches
+        got = R.lookup(table, ids)
+        launched = eb.launches - before
+        want = table[ids.long()]
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[table.dtype]
+    require(launched == 1, (label, "lookup launches", launched))
+    require(got.dtype == table.dtype and torch.equal(got.view(bits), want.view(bits)),
+            (label, "lookup is not table[ids] bit for bit"))
+    return ids.numel()
+
+
+def timed_calls(fn, reps):
+    """(median ms of ``reps`` warm calls, host clock around a synchronised
+    call, the last call's output)."""
+    out = fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), out
+
+
+def big_tables(R, params):
+    """The tree's 2-D leaves of 65,536 rows or more: the embedding tables
+    (bf16 in the serving copy)."""
+    from repro_torch.train.tree import flatten
+
+    return [t for t in flatten(params)[0] if t.dim() == 2 and t.shape[0] >= R.LARGE_TABLE_ROWS]
+
+
+def serving_copy(R, init, cfg, gen, dev):
+    """The registry's serving copy: 2-D leaves of 65,536 rows or more in
+    bf16, the rest f32.  Every leaf is drawn in bf16 (DLRM's 187,767,808 x
+    128 table straight in bf16: 96 GB in f32 would not fit the card), then
+    the small ones are cast to f32."""
+    import dataclasses
+
+    from repro_torch.train.tree import map_leaves
+
+    p = init(dataclasses.replace(cfg, param_dtype=torch.bfloat16), gen, dev)
+    return map_leaves(lambda t: t if t.dim() == 2 and t.shape[0] >= R.LARGE_TABLE_ROWS
+                      else t.float(), p)
+
+
+def recsys_serve(R, eb, arch, cfg, init, dev, serve, n_cand, chunks):
+    """(a) for one model: its serving copy, ``serve`` batches through the
+    scoring entry point and one user against ``n_cand`` candidates, each
+    call's launches, the lookups bit for bit, retrieval against the
+    scoring entry point on the first candidates."""
+    from repro_torch.train.tree import flatten
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    free_device_memory()
+    t0 = time.perf_counter()
+    params = serving_copy(R, init, cfg, gen, dev)
+    torch.cuda.synchronize()
+    leaves = flatten(params)[0]
+    tables = big_tables(R, params)
+    table = max(tables, key=lambda t: t.numel())
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    out = {"params_gb": nbytes / 1e9, "table": list(table.shape),
+           "table_dtype": str(table.dtype), "init_s": time.perf_counter() - t0}
+    log(f"[recsys] {arch}: serving copy {nbytes / 1e9:.3f} GB (largest table "
+        f"{table.shape[0]:,} x {table.shape[1]} {table.dtype}) in {out['init_s']:.2f} s")
+    checked = 0
+    for shape, B in serve.items():
+        b = recsys_batch(arch, cfg, B, seed=1, dev=dev)
+        torch.cuda.reset_peak_memory_stats()
+        before = eb.launches
+        ms, s = timed_calls(lambda b=b: recsys_score(R, arch, cfg, params, b),
+                            RECSYS_REPS[shape])
+        calls = RECSYS_REPS[shape] + 1
+        per_call = (eb.launches - before) / calls
+        require(per_call == RECSYS_LOOKUPS[(arch, "score")], (arch, shape, "launches", per_call))
+        require(s.shape == (B,) and s.dtype == torch.float32 and bool(torch.isfinite(s).all()),
+                (arch, shape, "scores", s.shape, s.dtype))
+        out[shape] = {"batch": B, "ms": ms, "rows_per_s": B / ms * 1e3,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches_per_call": per_call}
+        checked += sum(check_lookup_bits(R, eb, t, recsys_ids(R, arch, cfg, b), (arch, shape))
+                       for t in tables)
+        log(f"[recsys] {arch} {shape} B={B:,}: {ms:.3f} ms ({B / ms * 1e3:,.0f} rows/s), "
+            f"peak {out[shape]['peak_gib']:.2f} GiB, {per_call:.0f} embedding-bag launches a call")
+        del b, s
+    # retrieval: the first user of a seeded batch against n_cand candidates
+    # of the model's largest field (SASRec: items), in ``chunks`` calls
+    user = recsys_batch(arch, cfg, 4, seed=2, dev=dev)
+    if arch == "sasrec":
+        field, hi, lo = None, cfg.n_items + 1, 1
+    else:
+        field = 0 if arch == "dlrm-mlperf" else int(np.argmax(cfg.vocab_sizes))
+        hi, lo = cfg.vocab_sizes[field], 0
+    cand = torch.randint(lo, hi, (n_cand,), generator=gen, device=dev, dtype=torch.int32)
+    parts = cand.chunk(chunks)
+    torch.cuda.reset_peak_memory_stats()
+    before = eb.launches
+    ms, scores = timed_calls(lambda: torch.cat([recsys_retrieve(
+        R, arch, cfg, params, user, c, field) for c in parts]), RECSYS_REPS["retrieval_cand"])
+    calls = (RECSYS_REPS["retrieval_cand"] + 1) * len(parts)
+    per_call = (eb.launches - before) / calls
+    require(per_call == RECSYS_LOOKUPS[(arch, "retrieval")], (arch, "retrieval launches",
+                                                              per_call))
+    require(scores.shape == (n_cand,) and scores.dtype == torch.float32
+            and bool(torch.isfinite(scores).all()), (arch, "retrieval scores"))
+    out["retrieval_cand"] = {"candidates": n_cand, "chunks": len(parts), "field": field,
+                             "ms": ms, "rows_per_s": n_cand / ms * 1e3,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "launches_per_call": per_call}
+    # the first candidates scored by the batch entry point (not the main
+    # path's traffic: uncounted)
+    k = min(RECSYS_CHECK_CANDIDATES, n_cand)
+    with uncounted([eb]):
+        want = recsys_score(R, arch, cfg, params, recsys_filled_in(arch, user, cand[:k], field))
+    gap = float((scores[:k] - want).abs().max())
+    scale = float(want.abs().max())
+    out["retrieval_cand"].update(gap=gap, gap_rel=gap / max(scale, 1e-30), score_scale=scale)
+    require(gap <= RECSYS_GAP_REL * scale, (arch, "retrieval against the scoring entry point",
+                                            gap, scale))
+    checked += sum(check_lookup_bits(R, eb, t, cand, (arch, "retrieval")) for t in tables)
+    out["lookup_rows_checked"] = checked
+    of = "items" if field is None else f"field {field}"
+    log(f"[recsys] {arch} retrieval_cand: 1 user x {n_cand:,} candidates ({of}) in "
+        f"{len(parts)} call(s): {ms:.3f} ms ({n_cand / ms * 1e3:,.0f} candidates/s), peak "
+        f"{out['retrieval_cand']['peak_gib']:.2f} GiB; first {k} against the scoring entry "
+        f"point: max |diff| {gap:.3e} of scores up to {scale:.3e} (tolerance "
+        f"{RECSYS_GAP_REL} of it); {checked:,} lookups equal to table[ids] bit for bit")
+    # the lookup alone at the bulk batch's ids: the kernel beside the plain gather
+    ids = recsys_ids(R, arch, cfg, recsys_batch(arch, cfg, serve["serve_bulk"], 1, dev))
+    with uncounted([eb]):
+        k_ms = cuda_time_ms(lambda: R.lookup(table, ids), 10)
+        p_ms = cuda_time_ms(lambda: table[ids.long()], 10)
+    row = table.shape[1] * table.element_size()
+    nbytes = torch.unique(ids).numel() * row + ids.numel() * (4 + row)
+    out["lookup"] = {"rows": ids.numel(), "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"[recsys] {arch} lookup of the bulk batch's {ids.numel():,} ids: kernel {k_ms:.4f} ms, "
+        f"table[ids] {p_ms:.4f} ms, byte bound {out['lookup']['bound_ms']:.4f} ms")
+    del params, table, tables, leaves, scores, cand, parts, ids
+    free_device_memory()
+    return out
+
+
+def recsys_train(R, eb, arch, cfg, init, loss, dev, batch, steps):
+    """(b) for one model: ``steps`` f32 AdamW steps through ``train`` on
+    ``batch`` rows a step, the launches of each step, finite losses; for
+    FM, the first batch's table gradients through the kernel, and by plain
+    ``table[ids]`` autograd, against an f64 gradient."""
+    from repro_torch.train.loop import train, value_and_grad
+    from repro_torch.train.tree import flatten, map_leaves
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    free_device_memory()
+    params = init(cfg, gen, dev)
+    n_params = sum(t.numel() for t in flatten(params)[0])
+    batches = [recsys_batch(arch, cfg, batch, 10 + s) for s in range(steps)]
+    for b in batches:
+        b.pop("target", None)
+    first = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+    ids = recsys_ids(R, arch, cfg, {**first, "target": first.get("pos_items")})
+    checked = sum(check_lookup_bits(R, eb, t, ids, (arch, "train"))
+                  for t in big_tables(R, params))
+    marks = []
+
+    def batch_fn(step):
+        marks.append(eb.launches)
+        return batches[step]
+
+    def loss_fn(p, b):
+        return loss(cfg, p, b)
+
+    out = {"lookup_rows_checked": checked}
+    if arch == "fm":
+        with uncounted([eb]):
+            _, got = value_and_grad(loss_fn, params, first)
+            orig = R.lookup
+            R.lookup = lambda t, i: t[i.long()]  # plain autograd: index_put's sums
+            try:
+                _, plain = value_and_grad(loss_fn, params, first)
+                _, exact = value_and_grad(loss_fn, map_leaves(torch.Tensor.double, params),
+                                          {k: v.double() if v.is_floating_point() else v
+                                           for k, v in first.items()})
+            finally:
+                R.lookup = orig
+        errs = {key: {"kernel_vs_f64": rel_norm(got[key], exact[key]),
+                      "plain_vs_f64": rel_norm(plain[key], exact[key]),
+                      "kernel_vs_plain": rel_norm(got[key], plain[key])} for key in ("emb", "lin")}
+        out["grad_rel"] = errs
+        require(all(e["kernel_vs_f64"] <= RECSYS_GRAD_RTOL for e in errs.values()),
+                ("FM table gradients through the kernel against the f64 gradient", errs))
+        require(float(got["emb"].abs().max()) > 0, "FM: no table gradient")
+        log("[recsys] fm: the first batch's table gradients in relative norm, through the "
+            "kernel / plain f32 table[ids] autograd against the f64 gradient, and kernel "
+            "against plain: " + "; ".join(
+                f"{k} {e['kernel_vs_f64']:.2e} / {e['plain_vs_f64']:.2e}, "
+                f"{e['kernel_vs_plain']:.2e}" for k, e in errs.items())
+            + f" (tolerance {RECSYS_GRAD_RTOL} against f64)")
+        del got, plain, exact
+    del first, ids
+    held = [params]  # the loop owns the parameters (AdamW's update frees them)
+    del params
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train(loss_fn, held.pop, batch_fn, n_steps=steps, ckpt_dir=ckpt,
+                    ckpt_every=steps, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    marks.append(eb.launches)
+    per_step = [b - a for a, b in zip(marks, marks[1:])]
+    require(per_step == [RECSYS_LOOKUPS[(arch, "train")]] * steps, (arch, "launches a step",
+                                                                    per_step))
+    require(len(res.losses) == steps and all(np.isfinite(res.losses)), (arch, res.losses))
+    med = float(np.median(res.step_seconds[1:]))
+    out.update(batch=batch, steps=steps, losses=res.losses, step_seconds=res.step_seconds,
+               step_median_s=med, rows_per_s=batch / med,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, run_s=run_s,
+               launches_per_step=per_step[0], params=n_params)
+    log(f"[recsys] {arch} train: {steps} f32 steps of {batch:,} rows in {run_s:.2f} s (the "
+        f"last step's checkpoint included): losses " + " ".join(f"{x:.4f}" for x in res.losses)
+        + f"; median of steps 2-{steps} {med:.4f} s ({batch / med:,.0f} rows/s); peak "
+        f"{out['peak_gib']:.2f} GiB; {per_step[0]} embedding-bag launches a step")
+    del res
+    free_device_memory()
+    return out
+
+
+def phase_recsys(dev, eb, configs=None, serve=RECSYS_SERVE, n_cand=RECSYS_CANDIDATES,
+                 chunks=RECSYS_RETRIEVAL_CHUNKS, train_batch=RECSYS_TRAIN_BATCH,
+                 steps=RECSYS_TRAIN_STEPS, dlrm_cap=RECSYS_DLRM_TRAIN_CAP,
+                 cli_steps=RECSYS_CLI_STEPS):
+    """Phase 12: FM, SASRec, AutoInt and DLRM-MLPerf at their published
+    widths (``configs``: arch -> config, default each ``config()``).  (a)
+    serving on the registry's shapes in the serving copy, (b) training in
+    f32 (DLRM's tables capped at ``dlrm_cap`` rows), (c) the training CLI
+    for two archs.  Returns the launches of (a) and (b) and the numbers."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch_module
+    from repro_torch.launch.train import RECSYS
+    from repro_torch.models import recsys as R
+
+    t_phase = time.perf_counter()
+    configs = configs or {a: get_arch_module(a).config() for a in RECSYS_ARCHS}
+    runs = {"card": nvidia_smi_line(), "serve": {}, "train": {}}
+    eb.launches = 0  # the recsys path's run starts here
+    for arch, cfg in configs.items():
+        runs["serve"][arch] = recsys_serve(R, eb, arch, cfg, RECSYS[arch][0], dev, serve,
+                                           n_cand, chunks[arch])
+    for arch, cfg in configs.items():
+        if arch == "dlrm-mlperf":
+            cfg = dataclasses.replace(cfg, vocab_sizes=tuple(min(v, dlrm_cap)
+                                                             for v in cfg.vocab_sizes))
+            log(f"[recsys] dlrm-mlperf train: reduced: each table capped at {dlrm_cap:,} rows "
+                f"({sum(cfg.vocab_sizes):,} rows of {sum(R.MLPERF_TABLE_SIZES):,}); widths "
+                "as published")
+        runs["train"][arch] = recsys_train(R, eb, arch, cfg, *RECSYS[arch], dev, train_batch,
+                                           steps)
+    launches = {"embedding_bag": eb.launches}
+    runs["launches"] = eb.launches
+    # (c) the CLI, on the reduced configs
+    runs["cli"] = {}
+    for arch in RECSYS_CLI_ARCHS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ckpt:
+            res = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                 "--steps", str(cli_steps), "--ckpt", ckpt, *RECSYS_CLI_ARGS],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+                capture_output=True, text=True, timeout=300)
+        require(res.returncode == 0, (arch, "training CLI", res.returncode, res.stderr[-2000:]))
+        line = res.stdout.strip().splitlines()[-1]
+        require(line.startswith(f"[{arch}] steps={cli_steps} loss "), ("CLI output", line))
+        runs["cli"][arch] = time.perf_counter() - t0
+        log(f"[recsys] (c) python -m repro_torch.launch.train --arch {arch} --steps "
+            f"{cli_steps}: exit 0 in {runs['cli'][arch]:.1f} s; {line}")
+    runs["phase_s"] = time.perf_counter() - t_phase
+    log(f"[recsys] phase body {runs['phase_s']:.1f} s; {eb.launches:,} embedding-bag launches "
+        f"on the path; {nvidia_smi_line()}")
+    return launches, runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU",
@@ -4398,9 +4821,15 @@ def main() -> int:
     flash_record.update({f"llama4_{label}_{k}": v for label, r in l4_runs["kernel"].items()
                          for k, v in r.items()})
     log(f"[llama4] phase {time.perf_counter() - t0:.1f} s")
+    free_device_memory()
+    t0 = time.perf_counter()
+    paths["recsys"], recsys_runs = phase_recsys(dev, embedding_bag)
+    bag_record.update(recsys_lookup={a: r["lookup"] for a, r in recsys_runs["serve"].items()})
+    log(f"[recsys] phase {time.perf_counter() - t0:.1f} s")
     log("[lm] runs " + json.dumps(lm_runs))
     log("[train] runs " + json.dumps(train_runs))
     log("[llama4] runs " + json.dumps(l4_runs))
+    log("[recsys] runs " + json.dumps(recsys_runs))
     for r in records:
         # each kernel's launches on the paths that run it, each path counted
         # from 0 just before it ran

@@ -2,10 +2,10 @@
 ``ALL_ARCHS`` and ``get_arch_module``).
 
 ``ALL_ARCHS`` names the reference's architectures.  ``get_arch_module``
-returns the config module of the five ported LMs and raises
-``NotImplementedError`` naming the ROADMAP item for the others.  The
-reference's shape table and cells (abstract inputs, partition specs,
-roofline metadata) wait for ROADMAP A12.5.
+returns the config module of the five ported LMs and the four recsys
+models, and raises ``NotImplementedError`` naming the ROADMAP item for
+NequIP.  The reference's shape table and cells (abstract inputs,
+partition specs, roofline metadata) wait for ROADMAP A12.5.
 """
 
 from __future__ import annotations
@@ -19,15 +19,15 @@ _PORTED = {
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "fm": "repro_torch.configs.fm",
+    "sasrec": "repro_torch.configs.sasrec",
+    "autoint": "repro_torch.configs.autoint",
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
 }
 
 #: the others: (family, ROADMAP item that ports them)
 _WAITING = {
     "nequip": ("gnn", "A12.5"),
-    "fm": ("recsys", "A12.4"),
-    "sasrec": ("recsys", "A12.4"),
-    "autoint": ("recsys", "A12.4"),
-    "dlrm-mlperf": ("recsys", "A12.4"),
 }
 
 ALL_ARCHS = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b", "llama3.2-3b",

@@ -18,6 +18,10 @@ dense LM: the reference's parameter or KV-cache pytree as (nested) dicts of
 numpy arrays (bf16 arrays as the ``bfloat16`` numpy dtype the reference
 hands out) become the port's dict of tensors, so both packages compute the
 same function on the same weights.
+
+``recsys_params_from_numpy`` carries a recsys model's parameter pytree
+(dicts and lists of numpy arrays), each leaf in its own dtype: the
+serving copy mixes bf16 tables with f32 MLPs.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from repro_torch.core.ilcp import ILCPIndex
 from repro_torch.core.pdl import PDLIndex
 from repro_torch.core.sada import VARIANTS, SadaCount
 from repro_torch.core.suffix import Collection
+from repro_torch.models import recsys
 from repro_torch.models.transformer import LMConfig, param_shapes
 from repro_torch.serve.retrieval import RetrievalService
 
@@ -123,3 +128,40 @@ def lm_cache_from_numpy(cfg: LMConfig, tree: dict, device="cuda") -> dict:
     shape = (cfg.n_groups, *k[1:3], cfg.n_kv_heads, cfg.head_dim)
     shapes = {f"pos{p}": {"k": shape, "v": shape} for p in range(cfg.period)}
     return _float_tree(tree, shapes, cfg.act_dtype, resolve_device(device))
+
+
+_RECSYS_INIT = {
+    recsys.FMConfig: recsys.fm_init,
+    recsys.SASRecConfig: recsys.sasrec_init,
+    recsys.AutoIntConfig: recsys.autoint_init,
+    recsys.DLRMConfig: recsys.dlrm_init,
+}
+
+
+def _leaf_tree(tree, like, device, path=""):
+    """``tree`` (numpy leaves) in the dict/list structure and shapes of
+    ``like`` (``meta`` tensors), each leaf in its own dtype."""
+    if isinstance(like, (dict, list)):
+        keys = sorted(like) if isinstance(like, dict) else range(len(like))
+        if isinstance(like, dict) and (not isinstance(tree, dict) or set(tree) != set(like)):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{path or 'tree'}: expected keys {sorted(like)}, got {got}")
+        if isinstance(like, list) and (not isinstance(tree, (list, tuple))
+                                       or len(tree) != len(like)):
+            got = len(tree) if isinstance(tree, (list, tuple)) else type(tree).__name__
+            raise ValueError(f"{path or 'tree'}: expected a list of {len(like)}, got {got}")
+        out = {k: _leaf_tree(tree[k], like[k], device, f"{path}/{k}") for k in keys}
+        return out if isinstance(like, dict) else [out[i] for i in keys]
+    if tuple(np.shape(tree)) != tuple(like.shape):
+        raise ValueError(f"{path}: expected shape {tuple(like.shape)}, got {np.shape(tree)}")
+    return _float_tensor(tree, None, device)  # the leaf's own dtype
+
+
+def recsys_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
+    """The port's parameter tree of the recsys model ``cfg`` (an
+    ``FMConfig``, ``SASRecConfig``, ``AutoIntConfig`` or ``DLRMConfig``)
+    from the reference's parameter pytree (numpy leaves, lists included).
+    Keys, list lengths and shapes are checked against the model's init;
+    each leaf keeps its own dtype (bf16 leaves move bit for bit)."""
+    like = _RECSYS_INIT[type(cfg)](cfg, None, device="meta")
+    return _leaf_tree(tree, like, resolve_device(device))

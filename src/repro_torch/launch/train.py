@@ -4,15 +4,16 @@
         [--steps 100] [--batch 8] [--seq 128] [--ckpt DIR] [--ckpt-every 25] \
         [--lr 3e-4] [--compress-grads] [--device cuda]
 
-Trains the architecture's ``reduced_config()`` on synthetic token batches
-(``lm_batches``) through the fault-tolerant loop
+Trains the architecture's ``reduced_config()`` on synthetic batches (an
+LM on ``lm_batches``; a recsys model on ``recsys_batches``, in sequence
+mode for ``sasrec``) through the fault-tolerant loop
 (``repro_torch.train.loop``): resume from the latest checkpoint under
 ``--ckpt``, periodic atomic saves, straggler accounting, optional int8
 error-feedback gradient compression.  The flags and the output line are
 the reference's, plus ``--device`` (the card unless ``cpu`` is asked for);
 ``--ckpt`` defaults to a directory under the system's temporary directory.
-Only the LM family is ported: the other architectures raise
-``NotImplementedError`` naming their ROADMAP item.
+``--seq`` applies to LMs only.  NequIP is not ported yet: it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,10 +27,19 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.registry import ALL_ARCHS, get_arch_module
-from repro_torch.data.pipelines import lm_batches
+from repro_torch.data.pipelines import lm_batches, recsys_batches
+from repro_torch.models import recsys
 from repro_torch.models.transformer import forward_train, init_params
 from repro_torch.train.loop import train
 from repro_torch.train.optimizer import AdamWConfig
+
+#: the recsys architectures' (init, train loss)
+RECSYS = {
+    "fm": (recsys.fm_init, recsys.fm_train_loss),
+    "sasrec": (recsys.sasrec_init, recsys.sasrec_train_loss),
+    "autoint": (recsys.autoint_init, recsys.autoint_train_loss),
+    "dlrm-mlperf": (recsys.dlrm_init, recsys.dlrm_train_loss),
+}
 
 
 def main(argv=None):
@@ -50,16 +60,29 @@ def main(argv=None):
     mod = get_arch_module(args.arch)
     cfg = mod.reduced_config()
     dev = resolve_device(args.device)
-    it = lm_batches(cfg.vocab, args.batch, args.seq)
+    if mod.FAMILY == "lm":
+        it = lm_batches(cfg.vocab, args.batch, args.seq)
+        init = init_params
+
+        def loss(cfg, params, batch):
+            return forward_train(cfg, params, batch["tokens"], batch["labels"])
+
+    else:
+        init, loss = RECSYS[args.arch]
+        if args.arch == "sasrec":
+            it = recsys_batches((), args.batch, seq_len=cfg.seq_len, n_items=cfg.n_items)
+        else:
+            it = recsys_batches(cfg.vocab_sizes, args.batch,
+                                n_dense=getattr(cfg, "n_dense", 0))
 
     def batch_fn(step):
         return next(it)
 
     def loss_fn(params, batch):
-        return forward_train(cfg, params, batch["tokens"], batch["labels"])
+        return loss(cfg, params, batch)
 
     def init_fn():
-        return init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        return init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
 
     res = train(
         loss_fn, init_fn, batch_fn,

@@ -507,8 +507,18 @@ def _sublayer_decode(cfg: LMConfig, pos: int, p, x, cache_kv, t: int):
 def forward_decode(cfg: LMConfig, params, token, cache, t: int):
     """One decode step: token [B] at position ``t``.  Returns (logits
     [B, V], cache).  The cache is updated in place (position t of every
-    layer) and returned as the same object."""
+    layer) and returned as the same object.
+
+    ``t`` must lie in [0, S_max), S_max being the cache's position
+    dimension; otherwise ``ValueError`` is raised before any write.  The
+    reference's ``dynamic_update_slice`` writes such a t into the last slot
+    instead (clamped past the end, wrapped below 0), silently overwriting
+    a prompt token's k/v (ROADMAP C11)."""
     _require_ported(cfg)
+    s_max = cache["pos0"]["k"].shape[2]
+    if not 0 <= t < s_max:
+        raise ValueError(f"{cfg.name}: decode position t={t} is outside the cache of "
+                         f"{s_max} positions")
     x = params["embed"][token].to(cfg.act_dtype)
     for g in range(cfg.n_groups):
         for pos in range(cfg.period):

@@ -444,8 +444,7 @@ def test_registry_names_the_reference_archs():
         treg.get_arch_module("gpt-5")
 
 
-WAITING = {"nequip": "A12.5", "fm": "A12.4", "sasrec": "A12.4", "autoint": "A12.4",
-           "dlrm-mlperf": "A12.4"}
+WAITING = {"nequip": "A12.5"}
 
 
 @pytest.mark.parametrize("arch", sorted(WAITING))
