@@ -112,9 +112,13 @@ Phases (any failure exits non-zero; nothing is caught):
    takes), timed beside ``scaled_dot_product_attention`` as a yardstick.
 6. Embedding bag on a 39,979,771 x 128 table (the largest MLPerf DLRM
    table, 20.5 GB in f32, then in bf16): bags of B = 65,536 and 512, one
-   index each and 1..32 indices padded to 32, ``sum`` and ``mean``; each
-   against the plain version, and timed beside
-   ``torch.nn.functional.embedding_bag`` as a yardstick.
+   index each and 1..32 indices padded to 32, ``sum`` and ``mean``; then
+   narrow bf16 tables of the same rows at D = 1, 10, 16 and 50 (the recsys
+   row widths) at 262,144 x 39 uniform ids as bags of one (``sum``); each
+   against the plain version (bags of one also bit for bit against
+   ``table[ids]``), and timed beside ``torch.nn.functional.embedding_bag``
+   (and, for bags of one, ``table[ids]`` and ``torch.index_select``) as
+   yardsticks, with the byte bound and the sector bound.
 
 7. The paper's baselines (after phase 4b, on the indexes of phases 2 and 3;
    no new service build, at most 60 s): C's sparse-table RMQ and the DA
@@ -242,7 +246,10 @@ Phases (any failure exits non-zero; nothing is caught):
    batches and candidates against ``table[ids]`` bit for bit (with the
    tables' last rows); the first 1,024 retrieval scores against the
    scoring entry point on the same user with each candidate filled in; the
-   lookup alone at the bulk batch's ids beside ``table[ids]``.  (b)
+   lookup alone at the bulk batch's ids on each big table, beside
+   ``table[ids]``, ``torch.index_select`` on the int32 ids,
+   ``F.embedding_bag`` and the plain version, with the byte and sector
+   bounds.  (b)
    Training in f32: 8 AdamW steps through ``train`` on 65,536 rows a step
    (the registry's ``train_batch``), DLRM with each table capped at
    1,048,576 rows (7,402,496 rows, 3.79 GB: the functional AdamW update
@@ -344,6 +351,8 @@ EMB_ROWS = 39_979_771         # MLPERF_TABLE_SIZES' largest (repro.models.recsys
 EMB_DIM = 128
 EMB_BATCHES = (65_536, 512)   # the registry's train_batch and serve_p99
 EMB_LENGTHS = (1, 32)         # single-hot, and 1..32 indices padded to 32
+EMB_NARROW_DIMS = (1, 10, 16, 50)  # the recsys tables' widths (FM, AutoInt, SASRec)
+EMB_LOOKUP_IDS = 262_144 * 39      # the registry's serve_bulk batch x Criteo's 39 fields
 
 
 def log(*a):
@@ -3124,41 +3133,82 @@ def csr_of(idx):
     return idx[valid].long(), offsets
 
 
-def time_embedding_bag(eb, t, idx, dt, reps):
-    """Times of the kernel, its plain version and ``F.embedding_bag`` (CSR
-    form of the same bags, ``sum``) on one table and batch, with the
-    byte bound of the rows these bags gather."""
+def bag_library_calls(t, idx):
+    """The PyTorch calls that compute the sums of int32 bags ``idx`` on table
+    ``t``, by name: ``library``, ``F.embedding_bag`` on the CSR form
+    (``sum``); for bags of one also ``gather``, ``table[ids]`` on int64
+    ids, and ``index_select`` on the int32 ids (no cast inside the call)."""
     import torch.nn.functional as F
 
+    flat, offsets = csr_of(idx)
+    fns = {"library": lambda: F.embedding_bag(flat, t, offsets, mode="sum")}
+    if idx.shape[1] == 1:
+        ids32, ids64 = idx.reshape(-1), idx.reshape(-1).long()
+        fns["gather"] = lambda: t[ids64]
+        fns["index_select"] = lambda: torch.index_select(t, 0, ids32)
+    return fns
+
+
+def time_calls(fns, reps):
+    """``{name}_ms`` (CUDA events, back to back) and ``{name}_device_ms``
+    (queued behind a spin kernel) of each call in ``fns``."""
+    r = {}
+    for name, fn in fns.items():
+        r[f"{name}_ms"] = cuda_time_ms(fn, reps)
+        r[f"{name}_device_ms"] = queued_time_ms(fn, reps)
+    return r
+
+
+def bag_bounds_ms(t, idx):
+    """Least times (ms) of one bag call on table ``t`` with int32 bags
+    ``idx``, over HBM_BYTES_PER_S: by bytes (each distinct gathered row
+    once, the indices and the output once) and by sectors (every gathered
+    row's 32-byte sectors, then the indices and the output)."""
+    row = t.shape[1] * t.element_size()
+    flat = idx[idx >= 0].long()
+    io = idx.numel() * 4 + idx.shape[0] * row
+    start = flat * row
+    sectors = int(((start + row - 1) // 32 - start // 32 + 1).sum())
+    return ((torch.unique(flat).numel() * row + io) / HBM_BYTES_PER_S * 1e3,
+            (sectors * 32 + io) / HBM_BYTES_PER_S * 1e3)
+
+
+def time_embedding_bag(eb, t, idx, dt, reps):
+    """Times of the kernel, its plain version and the library calls of
+    ``bag_library_calls`` (``F.embedding_bag``; for bags of one also
+    ``table[ids]`` and ``index_select``) on one table and batch, with the
+    byte and sector bounds of the rows these bags gather."""
     from repro_torch.kernels.embedding_bag import embedding_bag_plain
 
     (B, L), (rows, dim) = idx.shape, t.shape
-    flat, offsets = csr_of(idx)
+    entries = int((idx >= 0).sum())
     fk = lambda: eb(t, idx)  # noqa: E731
     fp = lambda: embedding_bag_plain(t, idx)  # noqa: E731
-    fl = lambda: F.embedding_bag(flat, t, offsets, mode="sum")  # noqa: E731
-    lib_err = max_abs(fk(), fl())
-    nbytes = (torch.unique(flat).numel() * dim * t.element_size() + idx.numel() * 4
-              + B * dim * t.element_size())
-    tb, to = nbytes / HBM_BYTES_PER_S, flat.numel() * dim / F32_FLOPS_PER_S
+    lib = bag_library_calls(t, idx)
+    lib_err = max_abs(fk(), lib["library"]())
+    tb, sector_ms = bag_bounds_ms(t, idx)
+    tb, to = tb / 1e3, entries * dim / F32_FLOPS_PER_S
     r = dict(
         ms=cuda_time_ms(fk, reps), device_ms=queued_time_ms(fk, reps),
         profiler_device_ms=device_ms_of(profile_calls(fk, 5), "embedding_bag_kernel"),
-        plain_ms=cuda_time_ms(fp, max(reps // 5, 2)), library_ms=cuda_time_ms(fl, reps),
-        library_device_ms=queued_time_ms(fl, reps),
+        plain_ms=cuda_time_ms(fp, max(reps // 5, 2)), **time_calls(lib, reps),
         bound_ms=max(tb, to) * 1e3, bound_by="bytes" if tb >= to else "operations",
-        library_max_abs_diff=lib_err, entries=flat.numel(),
-        shape=f"V={rows} D={dim} {dt} B={B} L={L} sum, {flat.numel()} entries")
+        sector_bound_ms=sector_ms, library_max_abs_diff=lib_err, entries=entries,
+        shape=f"V={rows} D={dim} {dt} B={B} L={L} sum, {entries} entries")
     log(f"[embag] {r['shape']}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms; "
         f"profiler {r['profiler_device_ms']}), plain {r['plain_ms']:.3f} ms, "
-        f"F.embedding_bag {r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}), "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel vs library max |diff| "
-        f"{lib_err:.3e}")
+        f"F.embedding_bag {r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})"
+        + (f", table[ids] {r['gather_ms']:.4f} ms (device {r['gather_device_ms']:.4f}), "
+           f"index_select {r['index_select_ms']:.4f} ms (device "
+           f"{r['index_select_device_ms']:.4f})" if L == 1 else "")
+        + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), sector bound {sector_ms:.4f} "
+        f"ms; kernel vs library max |diff| {lib_err:.3e}")
     return r
 
 
 def phase_embedding_bag(dev, eb, rows=EMB_ROWS, dim=EMB_DIM, batches=EMB_BATCHES,
-                        lengths=EMB_LENGTHS, reps=20):
+                        lengths=EMB_LENGTHS, narrow_dims=EMB_NARROW_DIMS,
+                        lookup_ids=EMB_LOOKUP_IDS, reps=20):
     """Phase 6: the embedding-bag path, its checks and times."""
     from repro_torch.kernels.embedding_bag import embedding_bag_plain
 
@@ -3167,9 +3217,14 @@ def phase_embedding_bag(dev, eb, rows=EMB_ROWS, dim=EMB_DIM, batches=EMB_BATCHES
     table = torch.randn(rows, dim, generator=gen, device=dev)
     cases = [(B, L) for B in batches for L in lengths]
     bags = {c: padded_bags(gen, rows, *c, dev) for c in cases}
+    ids = padded_bags(gen, rows, lookup_ids, 1, dev)
+    narrow = {D: torch.randn(rows, D, generator=gen, device=dev, dtype=torch.bfloat16)
+              for D in narrow_dims}
     torch.cuda.synchronize()
     log(f"[embag] table {rows:,} x {dim} f32 ({table.numel() * 4 / 1e9:.2f} GB), bags "
-        + ", ".join(f"B={B} L={L}" for B, L in cases) + f"; set-up {time.perf_counter() - t0:.2f} s")
+        + ", ".join(f"B={B} L={L}" for B, L in cases) + f"; narrow bf16 tables {rows:,} x "
+        + "/".join(map(str, narrow_dims)) + f" with {lookup_ids:,} ids as bags of one; set-up "
+        f"{time.perf_counter() - t0:.2f} s")
     outs = {}
     eb.launches = 0  # the embedding-bag path's run starts here
     tables = {"f32": table}
@@ -3181,9 +3236,10 @@ def phase_embedding_bag(dev, eb, rows=EMB_ROWS, dim=EMB_DIM, batches=EMB_BATCHES
                 out = eb(tables[dt], bags[c], mode=mode)
                 require(out.shape == (c[0], dim) and out.dtype == tables[dt].dtype, (dt, c, mode))
                 outs[(dt, c, mode)] = out
+    narrow_outs = {D: eb(t, ids) for D, t in narrow.items()}
     torch.cuda.synchronize()
     launches = {"embedding_bag": eb.launches}
-    require(eb.launches == len(outs), launches)
+    require(eb.launches == len(outs) + len(narrow_outs), launches)
 
     worst = {"f32": 0.0, "bf16_abs": 0.0, "bf16_ulps": 0.0}
 
@@ -3204,6 +3260,14 @@ def phase_embedding_bag(dev, eb, rows=EMB_ROWS, dim=EMB_DIM, batches=EMB_BATCHES
     for (dt, c, mode), out in outs.items():
         log(f"[embag] {dt} B={c[0]} L={c[1]} {mode}: "
             + compare(out, tables[dt], bags[c], mode, (dt, c, mode)))
+    for D, out in narrow_outs.items():
+        t = narrow[D]
+        msg = compare(out, t, ids, "sum", ("bf16", D, "bags of one"))
+        require(torch.equal(out.view(torch.int16), t[ids[:, 0].long()].view(torch.int16)),
+                (D, "bags of one are not table[ids] bit for bit"))
+        log(f"[embag] bf16 D={D} {lookup_ids:,} bags of one: {msg}; equal to table[ids] bit "
+            "for bit")
+    del narrow_outs
     # edge bags: all padding, one index, a repeated index, the last rows
     # (offsets past 2^31 elements), and no columns of indices at all
     last = rows - 1
@@ -3221,7 +3285,9 @@ def phase_embedding_bag(dev, eb, rows=EMB_ROWS, dim=EMB_DIM, batches=EMB_BATCHES
 
     records = {(dt, c): time_embedding_bag(eb, t, bags[c], dt, reps)
                for dt, t in tables.items() for c in cases}
-    del tables, table, outs
+    records.update({("bf16", D): time_embedding_bag(eb, t, ids, "bf16", reps)
+                    for D, t in narrow.items()})
+    del tables, table, outs, narrow, ids
     free_device_memory()
     main = records[("f32", (batches[0], lengths[-1]))]
     record = dict(
@@ -3232,10 +3298,9 @@ def phase_embedding_bag(dev, eb, rows=EMB_ROWS, dim=EMB_DIM, batches=EMB_BATCHES
         library="torch.nn.functional.embedding_bag(flat, table, offsets, mode='sum')",
         **{k: main[k] for k in ("ms", "device_ms", "profiler_device_ms", "plain_ms",
                                 "library_ms", "library_device_ms", "bound_ms", "bound_by",
-                                "shape")},
-        others=[{"shape": r["shape"], **{k: r[k] for k in (
-            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}}
-            for r in records.values() if r is not main])
+                                "sector_bound_ms", "shape")},
+        others=[{k: v for k, v in r.items() if k not in ("profiler_device_ms", "bound_by")}
+                for r in records.values() if r is not main])
     return launches, record
 
 
@@ -4430,6 +4495,33 @@ def check_lookup_bits(R, eb, table, ids, label):
     return ids.numel()
 
 
+def lookup_alone(R, eb, table, ids, arch, reps=10):
+    """``lookup(table, ids)`` timed alone (uncounted) by CUDA events beside
+    the library calls of ``bag_library_calls`` on the ids as int32 bags of
+    one (``table[ids]``, ``index_select``, ``F.embedding_bag``) and the
+    plain version, with the byte and sector bounds: back to back (``*ms``)
+    and queued behind a spin kernel (``*device_ms``: no host time between
+    calls)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+
+    bags = ids.reshape(-1, 1).to(torch.int32).contiguous()
+    r = {"table": list(table.shape), "rows": bags.shape[0]}
+    fk = lambda: R.lookup(table, ids)  # noqa: E731
+    with uncounted([eb]):
+        r.update(ms=cuda_time_ms(fk, reps), device_ms=queued_time_ms(fk, reps),
+                 **time_calls(bag_library_calls(table, bags), reps),
+                 bag_plain_ms=cuda_time_ms(lambda: embedding_bag_plain(table, bags), 2))
+    r["bound_ms"], r["sector_bound_ms"] = bag_bounds_ms(table, bags)
+    log(f"[recsys] {arch} lookup of the bulk batch's {r['rows']:,} ids on {r['table']}, ms "
+        f"(device ms): kernel {r['ms']:.4f} ({r['device_ms']:.4f}), table[ids] "
+        f"{r['gather_ms']:.4f} ({r['gather_device_ms']:.4f}), index_select "
+        f"{r['index_select_ms']:.4f} ({r['index_select_device_ms']:.4f}), F.embedding_bag "
+        f"{r['library_ms']:.4f} ({r['library_device_ms']:.4f}), plain version "
+        f"{r['bag_plain_ms']:.4f}; byte bound {r['bound_ms']:.4f} ms, sector bound "
+        f"{r['sector_bound_ms']:.4f} ms")
+    return r
+
+
 def timed_calls(fn, reps):
     """(median ms of ``reps`` warm calls, host clock around a synchronised
     call, the last call's output)."""
@@ -4548,17 +4640,10 @@ def recsys_serve(R, eb, arch, cfg, init, dev, serve, n_cand, chunks):
         f"{out['retrieval_cand']['peak_gib']:.2f} GiB; first {k} against the scoring entry "
         f"point: max |diff| {gap:.3e} of scores up to {scale:.3e} (tolerance "
         f"{RECSYS_GAP_REL} of it); {checked:,} lookups equal to table[ids] bit for bit")
-    # the lookup alone at the bulk batch's ids: the kernel beside the plain gather
+    # the lookup alone at the bulk batch's ids, on each big table: the kernel
+    # beside the plain gather, index_select, F.embedding_bag and the plain version
     ids = recsys_ids(R, arch, cfg, recsys_batch(arch, cfg, serve["serve_bulk"], 1, dev))
-    with uncounted([eb]):
-        k_ms = cuda_time_ms(lambda: R.lookup(table, ids), 10)
-        p_ms = cuda_time_ms(lambda: table[ids.long()], 10)
-    row = table.shape[1] * table.element_size()
-    nbytes = torch.unique(ids).numel() * row + ids.numel() * (4 + row)
-    out["lookup"] = {"rows": ids.numel(), "ms": k_ms, "plain_ms": p_ms,
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-    log(f"[recsys] {arch} lookup of the bulk batch's {ids.numel():,} ids: kernel {k_ms:.4f} ms, "
-        f"table[ids] {p_ms:.4f} ms, byte bound {out['lookup']['bound_ms']:.4f} ms")
+    out["lookup"] = [lookup_alone(R, eb, t, ids, arch) for t in tables]
     del params, table, tables, leaves, scores, cand, parts, ids
     free_device_memory()
     return out

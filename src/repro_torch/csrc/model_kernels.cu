@@ -25,20 +25,54 @@
 //   expect it one to two orders of magnitude above the bound.  The way to
 //   the bound is bf16 wgmma with TMA-fed K/V tiles (a later change).
 //
-// embedding_bag: replaces repro/kernels/embedding_bag.py,
-//   embedding_bag_pallas / _embag_kernel.  One warp per bag, lanes over the
-//   D columns; each lane accumulates in f32 in index order, skips -1 (any
-//   negative) entries, divides by max(count, 1) for mean, and rounds once
-//   to the table's type.  Row offsets are 64-bit, so tables of up to
-//   2^31 - 1 rows are taken.
-//   Bound on this card: bytes — each gathered row once, the index matrix
-//   and the output; one or two adds per element read.  Rows are read as
-//   whole coalesced lines; the warp streams its bag's rows one after the
-//   other and the many resident warps keep enough reads in flight.
+// embedding_bag: replaces repro/kernels/embedding_bag.py:41,
+//   embedding_bag_pallas / _embag_kernel.  Padded int32 bags [B, L], any
+//   negative entry padding; per output element an f32 sum in index order,
+//   divided by max(count, 1) for mean, rounded once to the table's type
+//   (f32 or bf16); 64-bit row offsets, tables of up to 2^31 - 1 rows.  Every
+//   recsys lookup is this kernel with bags of one (the row back bit for bit).
+//   Bound on this card: bytes.  A gather with one add per element read:
+//   each gathered row once, the indices and the output, over 3.35 TB/s.
+//   Rows of 2 to 100 bytes (the recsys tables) cost whole 32-byte sectors,
+//   so a second reading counts every gathered row's sectors.
+//   The first design gave one warp to every bag at any D, each lane
+//   4 scalar columns at stride 32: at D = 10 ten lanes loaded anything, at
+//   D = 1 one, and each warp waited on two dependent loads (its index, then
+//   its row) with nothing else in flight.  Its time per bag barely moved
+//   with D (137-165 ps a bag for D = 10..128 in bf16 on an H100 at 700 W):
+//   bound by resident warps times DRAM latency, not by bytes.  The lane-group logic
+//   (embedding_bag_core.cuh) does four things about it:
+//   1. Lane groups sized to the row: the widest vector W of 16, 8, 4 or 2
+//      bytes dividing the row and both base addresses, G = min(32, next
+//      power of two of R / W) lanes a bag, 32 / G bags a warp (DLRM's 256-B
+//      rows 2, AutoInt's 32 B 16, FM's 20 B 4, FM's 2 B 32); rows past 32
+//      vectors loop over column chunks.
+//   2. Indices loaded once and coalesced: for bags of one, a warp tile's
+//      indices in one load a lane, handed out by __shfl_sync; for longer
+//      bags, a group loads its bag's index row a chunk of G x P entries at
+//      a time and hands it out the same way.
+//   3. Several rows in flight: each lane starts U = 4 row loads through
+//      the read-only path (__ldg) before its first add: U bags of one, or
+//      U entries of one bag, added in index order after; and each warp
+//      loads its next item's indices before it works on the current one.
+//      Outputs go out as W-byte streaming stores (evict first), so they
+//      do not push the table's hot rows out of L2.
+//   4. A bounded grid: at most kBagWaves = 8 waves of resident blocks (the
+//      occupancy API's count) stride over the warp tiles, not one warp per
+//      bag, in blocks small enough that the SMs finish together.  A small
+//      batch gets blocks of fewer warps, spread over the SMs.  Eight waves
+//      is for FM's lookups (rows of 2 and 20 bytes): 16 waves or the whole
+//      grid read 1-28% slower there, and at most 4% faster elsewhere.
+//   Occupancy (ptxas -v, CUDA 12.8): 48 registers a thread for W <= 8, so
+//   5 blocks of 256 threads (40 warps) an SM; 64 at W = 16, 4 blocks (32
+//   warps).  The sum kernels of W = 2, 4 and 16 spill nothing; bf16 at
+//   W = 8 (no main-path shape) and three mean kernels spill 8-56 bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "embedding_bag_core.cuh"
 
 namespace {
 
@@ -275,55 +309,117 @@ cudaError_t dispatch_flash(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// embedding bag
+// embedding bag (the lane-group logic: embedding_bag_core.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kBagThreads = 256;  // 8 bags per block
-constexpr int kColsPerLane = 4;   // one pass covers 128 columns
+constexpr int kBagThreads = 256;
+constexpr int kBagWarps = kBagThreads / 32;
+constexpr int kBagWaves = 8;  // grid: at most this many waves of resident blocks
 
-template <typename T>
-__global__ void embedding_bag_kernel(const T* __restrict__ table,
-                                     const int32_t* __restrict__ idx,
-                                     T* __restrict__ out, int B, int L, int D,
-                                     int mean) {
-  const long long bag =
-      ((long long)blockIdx.x * kBagThreads + threadIdx.x) >> 5;
+// A warp-wide shuffle of an index register (every lane calls it alike).
+struct WarpShfl {
+  __host__ __device__ __forceinline__ int32_t operator()(int32_t v, int, int src) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_sync(0xffffffffu, v, src);
+#else
+    return (void)src, v;  // never called on the host
+#endif
+  }
+};
+
+// Warps stride over `items` work items (eb::warp_items): tiles of bags of
+// one (L == 1), or one bag a group of G lanes (any other L, 0 included).
+// Each warp loads its next item's indices (its first chunk of them) before
+// it works on the current item, so that round trip overlaps the rows'.
+// MEAN is a template argument, so a sum kernel holds no division.
+template <class T, int W, bool MEAN>
+__global__ void __launch_bounds__(kBagThreads) embedding_bag_kernel(
+    const uint8_t* __restrict__ table, const int32_t* __restrict__ idx,
+    uint8_t* __restrict__ out, long long B, int L, long long items, eb::Plan p) {
+  constexpr int U = eb::kU;
   const int lane = threadIdx.x & 31;
-  if (bag >= B) return;
-  const int32_t* bag_idx = idx + bag * L;
-  T* bag_out = out + bag * D;
-  for (int c0 = 0; c0 < D; c0 += 32 * kColsPerLane) {
-    float acc[kColsPerLane];
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  int32_t ir[U], next[U];
+  if (L == 1) {
+    eb::bag1_load_indices<U>(p, idx, B, w * p.tile, lane, ir);
+    for (; w < items; w += warps) {
+      eb::bag1_load_indices<U>(p, idx, B, (w + warps) * p.tile, lane, next);
+      eb::bag1_tile<T, W, U>(p, table, out, B, w * p.tile, MEAN, lane, ir, WarpShfl{});
 #pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[j] = 0.f;
-    int count = 0;
-    for (int t = 0; t < L; ++t) {
-      const int32_t row = bag_idx[t];
-      if (row < 0) continue;
-      ++count;
-      const T* rp = table + (long long)row * D;
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) {
-        const int c = c0 + lane + 32 * j;
-        if (c < D) acc[j] += to_f32(rp[c]);
-      }
+      for (int r = 0; r < U; ++r) ir[r] = next[r];
     }
-    const float denom = (float)max(count, 1);
+    return;
+  }
+  const int g = lane & (p.G - 1);
+  const long long stride = warps * p.bpw;
+  long long bag = w * p.bpw + (lane >> p.lg);
+  eb::rows_load_indices<U>(p, idx, L, bag, bag < B, 0, lane, next);
+  for (; w < items; w += warps, bag += stride) {
+    const bool live = bag < B;
+    int32_t first[U];
 #pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c < D) bag_out[c] = from_f32<T>(mean ? acc[j] / denom : acc[j]);
+    for (int r = 0; r < U; ++r) first[r] = next[r];
+    eb::rows_load_indices<U>(p, idx, L, bag + stride, bag + stride < B, 0, lane, next);
+    for (int c = 0; c < p.chunks; ++c) {
+      const int col = c * p.G + g;
+      const bool on = live && col < p.nvec;
+      float acc[eb::elems<T, W>()];
+#pragma unroll
+      for (int e = 0; e < eb::elems<T, W>(); ++e) acc[e] = 0.f;
+      int count = 0;
+      for (int t0 = 0; t0 < L; t0 += p.chunk) {
+        if (c == 0 && t0 == 0) {
+#pragma unroll
+          for (int r = 0; r < U; ++r) ir[r] = first[r];
+        } else {
+          eb::rows_load_indices<U>(p, idx, L, bag, live, t0, lane, ir);
+        }
+        eb::rows_chunk<T, W, U>(p, table, col, on, lane, ir, acc, count, WarpShfl{});
+      }
+      if (on) eb::finish<T, W>(out + bag * p.R + (long long)col * W, acc, count, MEAN);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch_bag(const void* table, const void* idx, void* out, int B,
-                       int L, int D, int mean, cudaStream_t stream) {
-  const long long blocks = ((long long)B * 32 + kBagThreads - 1) / kBagThreads;
-  embedding_bag_kernel<T><<<(unsigned)blocks, kBagThreads, 0, stream>>>(
-      (const T*)table, (const int32_t*)idx, (T*)out, B, L, D, mean);
+// The grid: blocks of up to kBagWarps warps, fewer while the work would fill
+// fewer than one block an SM (a small batch spreads over the SMs), and at
+// most kBagWaves waves of resident blocks (the occupancy API's count).
+template <class T, int W, bool MEAN>
+cudaError_t launch_bag_plan(const void* table, const void* idx, void* out, int B, int L,
+                            const eb::Plan& p, cudaStream_t stream) {
+  static int per_sm = 0;  // resident blocks of kBagThreads an SM
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, embedding_bag_kernel<T, W, MEAN>, kBagThreads, 0);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long items = eb::warp_items(p, B, L);
+  int wpb = kBagWarps;
+  while (wpb > 1 && items < (long long)sms * wpb) wpb >>= 1;
+  const long long need = (items + wpb - 1) / wpb;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1) * kBagWaves;
+  const unsigned blocks = (unsigned)(need < resident ? need : resident);
+  embedding_bag_kernel<T, W, MEAN><<<blocks, wpb * 32, 0, stream>>>(
+      (const uint8_t*)table, (const int32_t*)idx, (uint8_t*)out, B, L, items, p);
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_bag(const void* table, const void* idx, void* out, int B, int L, int D,
+                       int mean, cudaStream_t stream) {
+  if (B == 0 || D == 0) return cudaSuccess;
+  const eb::Plan p = eb::make_plan(D, T::kBytes, (uintptr_t)table, (uintptr_t)out);
+  const int err = eb::with_plan<T>(p, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return (int)(mean ? launch_bag_plan<T, W, true>(table, idx, out, B, L, p, stream)
+                      : launch_bag_plan<T, W, false>(table, idx, out, B, L, p, stream));
+  });
+  return err < 0 ? cudaErrorInvalidValue : (cudaError_t)err;
 }
 
 }  // namespace
@@ -357,10 +453,8 @@ int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
 int rt_embedding_bag(const void* table, const void* idx, void* out, int B,
                      int L, int D, int mean, int is_bf16, void* stream) {
   cudaError_t err =
-      is_bf16 ? launch_bag<__nv_bfloat16>(table, idx, out, B, L, D, mean,
-                                          (cudaStream_t)stream)
-              : launch_bag<float>(table, idx, out, B, L, D, mean,
-                                  (cudaStream_t)stream);
+      is_bf16 ? launch_bag<eb::BF16>(table, idx, out, B, L, D, mean, (cudaStream_t)stream)
+              : launch_bag<eb::F32>(table, idx, out, B, L, D, mean, (cudaStream_t)stream);
   return (int)err;
 }
 

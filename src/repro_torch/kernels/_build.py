@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("retrieval_kernels.cu", "model_kernels.cu", "flash_hopper.cu", "probe_kernels.cu")
-HEADERS = ("retrieval_core.cuh",)
+HEADERS = ("retrieval_core.cuh", "embedding_bag_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

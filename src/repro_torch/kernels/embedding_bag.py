@@ -8,10 +8,13 @@ bag's row indices into ``table`` [V, D], negative entries (-1) padding.
 ``max(count, 1)`` for ``"mean"``; an empty bag gives zeros.  Both versions
 accumulate in f32 in index order and round once to the table's dtype.
 
-The kernel (``csrc/model_kernels.cu``, ``embedding_bag_kernel``) runs one
-warp per bag with lanes over D, for f32 and bf16 tables of up to 2^31 - 1
-rows.  Indices must lie in [0, V) or be negative; the wrapper does not read
-them back to check.
+The kernel (``csrc/model_kernels.cu``, ``embedding_bag_kernel``; its
+lane-group logic in ``csrc/embedding_bag_core.cuh``) gives each bag a group
+of lanes sized to the row, each lane one vector of up to 16 bytes, and keeps
+several rows in flight a lane (bags of one: several bags a group), for f32
+and bf16 tables of up to 2^31 - 1 rows.  The vector width follows the row's
+bytes and the table's and output's base addresses.  Indices must lie in
+[0, V) or be negative; the wrapper does not read them back to check.
 """
 
 from __future__ import annotations
