@@ -262,6 +262,30 @@ Phases (any failure exits non-zero; nothing is caught):
    --arch dlrm-mlperf --steps 20`` and ``--arch sasrec --steps 20`` as
    subprocesses, exit 0.
 
+13. NequIP (after phase 12, about 80 s): 5 interaction layers, 32 channels,
+   l_max 2, 8 radial functions, cutoff 5, seeded random weights, f32, on
+   the registry's GNN shapes with graphs from ``random_graph``:
+   ``full_graph_sm`` (2,708 nodes, 10,556 edges, 1,433 features),
+   ``molecule`` (3,840 nodes, 8,192 edges, 32 features, 128 graphs) and
+   ``minibatch_lg`` (169,984 nodes and edges, 602 features, 4 edge chunks;
+   dense on one card, where the reference partitions it over its mesh).
+   On each: ``forward_energy`` timed, 8 AdamW steps of ``forward_train``
+   through ``train`` (step s, nodes/s, peak memory, finite losses), one
+   step profiled (device ms by class), beside the registry cell's one-card
+   roofline terms.  Checks: on ``full_graph_sm`` and ``molecule`` the
+   card's energies and loss against the port's CPU run in f64 of the same
+   parameters and graph; on all three, the energies under a random
+   rotation of ``edge_vec`` and the l = 1 features against v R^T;
+   ``minibatch_lg``'s energies at 1 and 4 edge chunks.  ``ogb_products``
+   (2,449,408 nodes, 61,865,984 edges, 100 features): the host seconds of
+   ``random_graph``, ``build_csr`` and ``neighbor_sample`` (1,024 seeds,
+   fanout 15-10), then ``forward_energy`` at full size under ``no_grad``
+   in the fewest edge chunks that fit (printed), its seconds and peak
+   memory (training there needs the partitioned step, A12.2b).  Then
+   ``python -m repro_torch.launch.train --arch nequip --steps 3 --device
+   cuda`` as a subprocess, exit 0.  No kernel of the port runs in this
+   phase, so the kernel line does not change.
+
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -288,13 +312,21 @@ at reduced width is at most 3.5e-3 of it, tests/test_torch_recsys.py,
 and FM's at full width, 39 fields summed in bf16, about 1.1e-2); FM's
 table gradients through the kernel within 1e-6 in relative norm of an
 f64 gradient (plain f32 autograd's own sums lie 2.2e-6 from it on the
-embedding table).
+embedding table).  NequIP (phase 13): node features (s invariant and v
+against v R^T under a rotation; s at 1 against 4 edge chunks) within 1e-5
+of their largest magnitude (f32 rounding and the order of ``index_add_``,
+whose atomics add in any order on the card, and of the einsums); energies
+(against the CPU's f64 run, under the rotation, at 1 chunk) within 1e-5 +
+8 x 2^-24 sqrt(n) of the largest |energy|, n the nodes a graph sums (the
+f32 sum's own rounding walk: 2.1e-4 at minibatch_lg's 169,984), and the
+loss within twice that, relative.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -399,15 +431,17 @@ def queued_time_ms(fn, reps: int, spin_cycles: int = 20_000_000) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_calls(fn, reps: int):
-    """Run ``fn`` ``reps`` times under torch.profiler: per call, the wall
-    milliseconds, the device milliseconds summed over every kernel (and
-    copy), the device activities, and the device milliseconds by kernel
-    name.  Reads the raw Kineto events (nanosecond durations) and skips
-    the profiler's slow per-event Python post-processing."""
+def profile_calls(fn, reps: int, warm: bool = True):
+    """Run ``fn`` ``reps`` times under torch.profiler (after one call
+    outside it, with ``warm``): per call, the wall milliseconds, the device
+    milliseconds summed over every kernel (and copy), the device
+    activities, and the device milliseconds by kernel name.  Reads the raw
+    Kineto events (nanosecond durations) and skips the profiler's slow
+    per-event Python post-processing."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -4787,6 +4821,303 @@ def phase_recsys(dev, eb, configs=None, serve=RECSYS_SERVE, n_cand=RECSYS_CANDID
         f"on the path; {nvidia_smi_line()}")
     return launches, runs
 
+# ---------------------------------------------------------------------------
+# Phase 13: NequIP
+# ---------------------------------------------------------------------------
+
+NEQUIP_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")   # trained on one card
+NEQUIP_OGB = "ogb_products"        # the forward alone: training needs A12.2b
+NEQUIP_STEPS = 8
+NEQUIP_F64_SHAPES = ("full_graph_sm", "molecule")
+#: node features (s, v) against each other, of the largest magnitude: under a
+#: rotation of edge_vec (s invariant, v against v R^T) and at 1 against the
+#: shape's edge chunks; f32 rounding and the order of ``index_add_`` (atomics
+#: on the card) and of the einsums (measured on the CPU at full width: up to
+#: 3.6e-7; on an H100: up to 5.1e-7)
+NEQUIP_NODE_RTOL = 1e-5
+#: a graph's energy sums its n nodes' energies, on the card with atomics in
+#: any order, and f32 rounding walks about 2^-24 sqrt(n) of the total: the
+#: energies (against the CPU's f64 run, under a rotation, at 1 chunk) are
+#: held within NEQUIP_NODE_RTOL + NEQUIP_SUM_ULPS 2^-24 sqrt(n) of the
+#: largest |energy|, the loss within twice that, relative (minibatch_lg, n =
+#: 169,984 in one graph: 2.1e-4 allowed; on an H100 a rotation moved its
+#: energy by 9.5e-8 in one run and 1.13e-5 in another, 1 chunk by up to 1.4e-5)
+NEQUIP_SUM_ULPS = 8
+#: live bytes one edge of a chunk takes in the forward (w [E, 320], the
+#: gathered s/v/t, the three messages and the l = 2 intermediates), for
+#: choosing ogb_products' chunk count
+NEQUIP_EDGE_BYTES = 12 * 1024
+#: copies of the node state s/v/t (13 floats a channel) live at once in a
+#: layer: the inputs, the running sums, a chunk's sums, the new sums, the
+#: mixes and the outputs
+NEQUIP_NODE_COPIES = 8
+NEQUIP_OGB_CHUNKS = (8, 16, 32, 64)
+NEQUIP_SAMPLE = (1024, (15, 10))   # minibatch_lg's seeds and fanouts
+NEQUIP_CLI_STEPS = 3
+NEQUIP_CLI_ARGS = ("--device", "cuda")
+
+
+def nequip_graph(info, dev, seed=0):
+    """The registry shape's random graph (``random_graph``) on ``dev`` and
+    its host seconds."""
+    from repro_torch.data.pipelines import random_graph
+
+    t0 = time.perf_counter()
+    g = random_graph(info["n_nodes"], info["n_edges"], info["d_feat"],
+                     n_graphs=info["n_graphs"], seed=seed)
+    host_s = time.perf_counter() - t0
+    return {k: torch.as_tensor(v, device=dev) for k, v in g.items()}, host_s
+
+
+def nequip_energy(nq, cfg, params, b, n_graphs, chunks, edge_vec=None):
+    return nq.forward_energy(cfg, params, b["node_feat"], b["edge_index"],
+                             b["edge_vec"] if edge_vec is None else edge_vec, b["graph_id"],
+                             n_graphs, n_edge_chunks=chunks)
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want|, in f64."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def random_rotation(seed) -> torch.Tensor:
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    return torch.as_tensor((q * np.sign(np.linalg.det(q))).astype(np.float32))
+
+
+def nequip_energy_rtol(info) -> float:
+    """The energies' tolerance, of the largest |energy| (NEQUIP_SUM_ULPS)."""
+    n = info["n_nodes"] / info["n_graphs"]
+    return NEQUIP_NODE_RTOL + NEQUIP_SUM_ULPS * 2.0**-24 * math.sqrt(n)
+
+
+def nequip_checks(nq, cfg, params, b, shape, info, chunks):
+    """f64 on the CPU, rotation, chunk counts; each check raises on failure."""
+    from repro_torch.train.tree import map_leaves
+
+    G = info["n_graphs"]
+    e_tol = nequip_energy_rtol(info)
+    out = {"energy_rtol": e_tol}
+    with torch.no_grad():
+        e = nequip_energy(nq, cfg, params, b, G, chunks)
+        loss = nq.forward_train(cfg, params, b, G, n_edge_chunks=chunks)
+        if shape in NEQUIP_F64_SHAPES:
+            p64 = map_leaves(lambda x: x.cpu().double(), params)
+            b64 = {k: v.cpu().double() if v.is_floating_point() else v.cpu() for k, v in b.items()}
+            e64 = nequip_energy(nq, cfg, p64, b64, G, chunks)
+            loss64 = nq.forward_train(cfg, p64, b64, G, n_edge_chunks=chunks)
+            out["f64_energy_rel"] = rel_max(e, e64)
+            out["f64_loss_rel"] = abs(float(loss) - float(loss64)) / abs(float(loss64))
+            require(out["f64_energy_rel"] <= e_tol and out["f64_loss_rel"] <= 2 * e_tol,
+                    (shape, "f64", out))
+        R = random_rotation(1).to(b["edge_vec"].device)
+        args = (cfg, params, b["node_feat"], b["edge_index"])
+        s, v, _ = nq._node_states(*args, b["edge_vec"], chunks)
+        s_r, v_r, _ = nq._node_states(*args, b["edge_vec"] @ R.T, chunks)
+        out["rotation_s_rel"] = rel_max(s_r, s)
+        out["rotation_v_rel"] = rel_max(v_r, v @ R.T)
+        del s_r, v, v_r
+        out["rotation_energy_rel"] = rel_max(
+            nequip_energy(nq, cfg, params, b, G, chunks, edge_vec=b["edge_vec"] @ R.T), e)
+        require(out["rotation_s_rel"] <= NEQUIP_NODE_RTOL
+                and out["rotation_v_rel"] <= NEQUIP_NODE_RTOL
+                and out["rotation_energy_rel"] <= e_tol, (shape, "rotation", out))
+        if chunks > 1:
+            out["chunks_1_s_rel"] = rel_max(nq._node_states(*args, b["edge_vec"], 1)[0], s)
+            out["chunks_1_energy_rel"] = rel_max(nequip_energy(nq, cfg, params, b, G, 1), e)
+            require(out["chunks_1_s_rel"] <= NEQUIP_NODE_RTOL
+                    and out["chunks_1_energy_rel"] <= e_tol, (shape, "chunks", out))
+    require(bool(torch.isfinite(e).all()) and tuple(e.shape) == (G,), (shape, "energies"))
+    out["energy_absmax"] = float(e.abs().max())
+    out["loss"] = float(loss)
+    return out
+
+
+def nequip_roofline(shape):
+    """The registry cell's one-card roofline terms (its analytic model is
+    the train step's)."""
+    from repro_torch.configs.registry import build_cell
+    from repro_torch.dist.roofline import roofline_terms
+
+    return roofline_terms(build_cell("nequip", shape).meta, 1, 0.0).row()
+
+
+def nequip_train_shape(nq, cfgmod, dev, shape, info, steps):
+    """One registry shape: the forward, the checks, ``steps`` AdamW steps
+    through ``train``, one step profiled."""
+    from repro_torch.train.loop import train, value_and_grad
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+
+    free_device_memory()
+    cfg = cfgmod.config(d_feat_in=info["d_feat"])
+    N, G, chunks = info["n_nodes"], info["n_graphs"], info["edge_chunks"]
+    b, host_s = nequip_graph(info, dev)
+    params = nq.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    out = {"nodes": N, "edges": info["n_edges"], "d_feat": info["d_feat"], "graphs": G,
+           "chunks": chunks, "graph_host_s": host_s}
+    with torch.no_grad():
+        nequip_energy(nq, cfg, params, b, G, chunks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nequip_energy(nq, cfg, params, b, G, chunks)
+        torch.cuda.synchronize()
+        out["forward_s"] = time.perf_counter() - t0
+    out.update(nequip_checks(nq, cfg, params, b, shape, info, chunks))
+
+    def loss_fn(p, batch):
+        return nq.forward_train(cfg, p, batch, G, n_edge_chunks=chunks)
+
+    opt_cfg = AdamWConfig()
+    state = adamw_init(params, opt_cfg)
+
+    def one_step():
+        _, grads = value_and_grad(loss_fn, params, b)
+        adamw_update(opt_cfg, params, grads, state)
+
+    prof = profile_calls(one_step, 2)
+    out["profile"] = {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                      "by_class_ms": device_ms_by_class(prof)}
+    del state
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.reset_peak_memory_stats()
+        res = train(loss_fn, lambda: params, lambda step: b, n_steps=steps, ckpt_dir=ckpt,
+                    ckpt_every=steps, device=dev)
+    require(len(res.losses) == steps and all(np.isfinite(res.losses)), (shape, res.losses))
+    med = float(np.median(res.step_seconds[1:]))
+    out.update(losses=res.losses, step_seconds=res.step_seconds, step_median_s=med,
+               nodes_per_s=N / med, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               roofline=nequip_roofline(shape))
+    rl = out["roofline"]
+    log(f"[nequip] {shape}: {N:,} nodes, {info['n_edges']:,} edges, {info['d_feat']} features, "
+        f"{G} graphs, {chunks} edge chunks; forward {out['forward_s']:.4f} s; {steps} AdamW "
+        f"steps, losses " + " ".join(f"{x:.4g}" for x in res.losses)
+        + f"; median of steps 2-{steps} {med:.4f} s ({N / med:,.0f} nodes/s); peak "
+        f"{out['peak_gib']:.2f} GiB; one step profiled: wall {prof['wall_ms']:.2f} ms, device "
+        f"{prof['device_ms'] or 0:.2f} ms (" + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["profile"]["by_class_ms"].items()) + "); roofline "
+        f"(one card, the train step's analytic model): compute {rl['compute_s']:.3e} s, memory "
+        f"{rl['memory_s']:.3e} s, dominant {rl['dominant']}")
+    log(f"[nequip] {shape} checks: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in out.items() if k.endswith("_rel"))
+        + f" (tolerances: node features {NEQUIP_NODE_RTOL}, energies "
+        f"{out['energy_rtol']:.3e}, the loss twice that); |energy| up to "
+        f"{out['energy_absmax']:.4g}")
+    del res, b, params
+    return out
+
+
+def nequip_ogb_chunks(info, cfg, free_bytes) -> int:
+    """The fewest edge chunks (of ``NEQUIP_OGB_CHUNKS``, dividing E) whose
+    chunk fits beside the node state and the inputs in ``free_bytes``."""
+    N, E, F = info["n_nodes"], info["n_edges"], info["d_feat"]
+    node = N * cfg.channels * 13 * 4
+    fixed = NEQUIP_NODE_COPIES * node + E * (2 * 4 + 3 * 4 + 13 * 4) + N * F * 4
+    for c in NEQUIP_OGB_CHUNKS:
+        if E % c == 0 and fixed + E // c * NEQUIP_EDGE_BYTES <= free_bytes:
+            return c
+    raise RuntimeError(f"no chunk count of {NEQUIP_OGB_CHUNKS} fits {free_bytes / 2**30:.1f} GiB")
+
+
+def nequip_ogb(nq, cfgmod, dev, info, sample=NEQUIP_SAMPLE):
+    """ogb_products: the pipeline's host seconds (``random_graph``,
+    ``build_csr``, ``neighbor_sample``), then ``forward_energy`` at full
+    size under ``no_grad``."""
+    from repro_torch.data.pipelines import build_csr, neighbor_sample, random_graph
+
+    free_device_memory()
+    N, E = info["n_nodes"], info["n_edges"]
+    t0 = time.perf_counter()
+    g = random_graph(N, E, info["d_feat"], n_graphs=info["n_graphs"])
+    out = {"graph_host_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    indptr, nbrs = build_csr(N, g["edge_index"])
+    out["build_csr_s"] = time.perf_counter() - t0
+    seeds = np.random.default_rng(0).choice(N, sample[0], replace=False)
+    t0 = time.perf_counter()
+    nodes, sub = neighbor_sample(indptr, nbrs, seeds, fanouts=sample[1])
+    out["neighbor_sample_s"] = time.perf_counter() - t0
+    out["sample_nodes"], out["sample_edges"] = len(nodes), int(sub.shape[1])
+    del indptr, nbrs, nodes, sub
+    log(f"[nequip] {NEQUIP_OGB} pipeline on the host: random_graph {out['graph_host_s']:.2f} s, "
+        f"build_csr {out['build_csr_s']:.2f} s, neighbor_sample ({sample[0]} seeds, fanout "
+        f"{'-'.join(map(str, sample[1]))}) {out['neighbor_sample_s']:.3f} s: "
+        f"{out['sample_nodes']:,} nodes, {out['sample_edges']:,} edges")
+    cfg = cfgmod.config(d_feat_in=info["d_feat"])
+    b = {k: torch.as_tensor(v, device=dev) for k, v in g.items()}
+    del g
+    params = nq.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    free, _ = torch.cuda.mem_get_info()
+    chunks = nequip_ogb_chunks(info, cfg, free)
+    out.update(chunks=chunks, free_gib=free / 2**30)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        def forward():
+            return nequip_energy(nq, cfg, params, b, info["n_graphs"], chunks)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = forward()
+        torch.cuda.synchronize()
+        out["forward_s"] = time.perf_counter() - t0
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        prof = profile_calls(forward, 1, warm=False)
+    out["profile"] = {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                      "by_class_ms": device_ms_by_class(prof),
+                      "top_ms": dict(sorted(prof["by_kernel_ms"].items(),
+                                            key=lambda kv: -kv[1])[:6])}
+    require(bool(torch.isfinite(e).all()) and tuple(e.shape) == (info["n_graphs"],),
+            (NEQUIP_OGB, "energies", e))
+    out["energy"] = e.tolist()
+    out["roofline"] = nequip_roofline(NEQUIP_OGB)
+    log(f"[nequip] {NEQUIP_OGB}: forward_energy at {N:,} nodes, {E:,} edges, "
+        f"{info['d_feat']} features under no_grad in {chunks} edge chunks (chosen of "
+        f"{NEQUIP_OGB_CHUNKS} for {out['free_gib']:.1f} GiB free): {out['forward_s']:.3f} s "
+        f"(the first call), peak {out['peak_gib']:.2f} GiB, energy {out['energy']}; a second "
+        f"call profiled: wall {prof['wall_ms']:.1f} ms, device {prof['device_ms'] or 0:.1f} ms ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["profile"]["by_class_ms"].items())
+        + "); top kernels " + "; ".join(f"{k[:60]} {v:.1f}"
+                                        for k, v in out["profile"]["top_ms"].items())
+        + f"; the train step's one-card roofline: compute {out['roofline']['compute_s']:.3e} "
+        f"s, memory {out['roofline']['memory_s']:.3e} s")
+    del b, params, e
+    free_device_memory()
+    return out
+
+
+def phase_nequip(dev, shapes=None, ogb=None, steps=NEQUIP_STEPS, cli_steps=NEQUIP_CLI_STEPS):
+    """Phase 13: NequIP at full width (5 layers, 32 channels, l_max 2, 8
+    radial functions, cutoff 5) on the registry's GNN shapes (``shapes``:
+    shape -> its ``GNN_SHAPES`` entry, default ``NEQUIP_SHAPES``; ``ogb``
+    the forward-only shape's entry, default ``NEQUIP_OGB``'s), then the
+    training CLI.  No kernel of the port runs here."""
+    from repro_torch.configs import nequip as cfgmod
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.models import nequip as nq
+
+    t_phase = time.perf_counter()
+    shapes = shapes or {s: GNN_SHAPES[s] for s in NEQUIP_SHAPES}
+    runs = {"card": nvidia_smi_line(), "train": {}}
+    for shape, info in shapes.items():
+        runs["train"][shape] = nequip_train_shape(nq, cfgmod, dev, shape, info, steps)
+    runs["ogb"] = nequip_ogb(nq, cfgmod, dev, ogb or GNN_SHAPES[NEQUIP_OGB])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "nequip", "--steps",
+             str(cli_steps), "--ckpt", ckpt, *NEQUIP_CLI_ARGS],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            capture_output=True, text=True, timeout=300)
+    require(res.returncode == 0, ("nequip training CLI", res.returncode, res.stderr[-2000:]))
+    line = res.stdout.strip().splitlines()[-1]
+    require(line.startswith(f"[nequip] steps={cli_steps} loss "), ("CLI output", line))
+    runs["cli_s"] = time.perf_counter() - t0
+    log(f"[nequip] python -m repro_torch.launch.train --arch nequip --steps {cli_steps} "
+        f"{' '.join(NEQUIP_CLI_ARGS)}: exit 0 in {runs['cli_s']:.1f} s; {line}")
+    runs["phase_s"] = time.perf_counter() - t_phase
+    log(f"[nequip] phase body {runs['phase_s']:.1f} s; {nvidia_smi_line()}")
+    return runs
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4911,10 +5242,15 @@ def main() -> int:
     paths["recsys"], recsys_runs = phase_recsys(dev, embedding_bag)
     bag_record.update(recsys_lookup={a: r["lookup"] for a, r in recsys_runs["serve"].items()})
     log(f"[recsys] phase {time.perf_counter() - t0:.1f} s")
+    free_device_memory()
+    t0 = time.perf_counter()
+    nequip_runs = phase_nequip(dev)
+    log(f"[nequip] phase {time.perf_counter() - t0:.1f} s")
     log("[lm] runs " + json.dumps(lm_runs))
     log("[train] runs " + json.dumps(train_runs))
     log("[llama4] runs " + json.dumps(l4_runs))
     log("[recsys] runs " + json.dumps(recsys_runs))
+    log("[nequip] runs " + json.dumps(nequip_runs))
     for r in records:
         # each kernel's launches on the paths that run it, each path counted
         # from 0 just before it ran

@@ -22,6 +22,9 @@ same function on the same weights.
 ``recsys_params_from_numpy`` carries a recsys model's parameter pytree
 (dicts and lists of numpy arrays), each leaf in its own dtype: the
 serving copy mixes bf16 tables with f32 MLPs.
+
+``nequip_params_from_numpy`` carries NequIP's parameter pytree (a dict
+whose ``layers`` is a list of per-layer dicts).
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ from repro_torch.core.ilcp import ILCPIndex
 from repro_torch.core.pdl import PDLIndex
 from repro_torch.core.sada import VARIANTS, SadaCount
 from repro_torch.core.suffix import Collection
-from repro_torch.models import recsys
+from repro_torch.models import nequip, recsys
 from repro_torch.models.transformer import LMConfig, param_shapes
 from repro_torch.serve.retrieval import RetrievalService
+from repro_torch.train.tree import map_leaves
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -165,3 +169,13 @@ def recsys_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
     each leaf keeps its own dtype (bf16 leaves move bit for bit)."""
     like = _RECSYS_INIT[type(cfg)](cfg, None, device="meta")
     return _leaf_tree(tree, like, resolve_device(device))
+
+
+def nequip_params_from_numpy(cfg: nequip.NequIPConfig, tree: dict, device="cuda") -> dict:
+    """The port's NequIP parameters from the reference's pytree (numpy
+    leaves), in ``cfg.param_dtype``.  Keys, the layer count and shapes are
+    checked against ``abstract_params(cfg)``; the layers stay a list, in
+    the order ``train/tree.py`` flattens (the reference's)."""
+    dev = resolve_device(device)
+    tree = _leaf_tree(tree, nequip.abstract_params(cfg), dev)
+    return map_leaves(lambda t: t.to(cfg.param_dtype), tree)

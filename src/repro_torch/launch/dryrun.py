@@ -1,0 +1,122 @@
+"""Dry run of every (architecture x input shape) cell on the ``meta``
+device (counterpart of ``repro.launch.dryrun``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S] [--out F]
+
+For each cell of ``configs.registry``: build it (abstract inputs as
+``meta`` tensors) and run its step function once on them.  PyTorch's meta
+kernels propagate shapes and dtypes without memory or arithmetic, so a
+run proves that every shape in the step agrees, as the reference's
+``lower().compile()`` does on its TPU mesh.  The kernel wrappers take
+their plain versions on non-CUDA tensors, and a meta tensor launches
+nothing, so no kernel is hidden from the card by this.  An op without a
+meta implementation, or a host read (``.item()``, a tensor's truth
+value), raises, and the cell is reported as failed with its reason.
+
+For each cell it reports, on one card:
+  * the state bytes: every abstract input (parameters, optimizer moments,
+    batch, KV cache);
+  * the reference's analytic estimate of the device's bytes: the state
+    plus a live window of 15% of the cell's analytic bytes;
+  * ``roofline_terms`` at ``chips=1`` on H100 constants (no collective);
+  * whether the estimate fits one 80 GB card.  A cell that does not is
+    reported as needing several cards (ROADMAP A12.2b), not as a failure.
+
+The exit code is 1 if any cell failed.  No card is needed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from repro_torch.configs.registry import ALL_ARCHS, ARCH_SHAPES, build_cell
+from repro_torch.dist.roofline import roofline_terms
+from repro_torch.train.tree import flatten
+
+#: one H100's device memory (the 80 GB part)
+HBM_BYTES = 80e9
+#: the reference's share of a cell's analytic bytes live at once
+LIVE_WINDOW = 0.15
+
+
+def _leaves(args) -> list:
+    return [leaf for arg in args for leaf in flatten(arg)[0]]
+
+
+def run_cell(arch: str, shape: str, reduced: bool = False, verbose: bool = True) -> dict:
+    """Build one cell, run its step on the meta device and report it;
+    raises whatever the step raises."""
+    cell = build_cell(arch, shape, reduced=reduced)
+    t0 = time.perf_counter()
+    out = cell.step_fn(*cell.abstract_args)
+    step_s = time.perf_counter() - t0
+    outs = _leaves(out if isinstance(out, tuple) else (out,))
+    if not all(isinstance(x, torch.Tensor) and x.is_meta for x in outs):
+        raise RuntimeError(f"{arch} {shape}: the step returned a value that is not a meta "
+                           "tensor")
+
+    state = sum(x.numel() * x.element_size() for x in _leaves(cell.abstract_args))
+    live = cell.meta["analytic_bytes"] * LIVE_WINDOW
+    fits = state + live <= HBM_BYTES
+    rl = roofline_terms(cell.meta, 1, 0.0)
+    result = {
+        "arch": arch,
+        "shape": shape,
+        "kind": cell.kind,
+        "reduced": reduced,
+        "chips": 1,
+        "meta_run_host_s": step_s,
+        "memory": {
+            "state_mb": state / 2**20,
+            "analytic_live_mb": live / 2**20,
+            "analytic_device_mb": (state + live) / 2**20,
+            "fits_one_card": fits,
+        },
+        "needs": "1 card" if fits else "several cards (A12.2b)",
+        "roofline": rl.row(),
+        "meta": {k: cell.meta[k] for k in ("params_total", "params_active", "tokens",
+                                           "scan_trips")},
+    }
+    if verbose:
+        print(f"[OK] {arch:26s} {shape:14s} state={state / 1e9:9.3f} GB "
+              f"device~{(state + live) / 1e9:9.3f} GB {result['needs']:22s} "
+              f"dom={rl.dominant} c/m/x = {rl.compute_s:.3e}/{rl.memory_s:.3e}/"
+              f"{rl.collective_s:.3e} s (meta run {step_s:.2f} s)", flush=True)
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, choices=list(ALL_ARCHS))
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--out", default=None, help="write the results as JSON here")
+    args = ap.parse_args(argv)
+
+    archs = [args.arch] if args.arch else list(ALL_ARCHS)
+    results, failures = [], []
+    for arch in archs:
+        for shape in [args.shape] if args.shape else ARCH_SHAPES[arch]:
+            try:
+                results.append(run_cell(arch, shape))
+            except Exception as e:  # noqa: BLE001 - a failed cell is reported, the rest run
+                failures.append({"arch": arch, "shape": shape,
+                                 "error": f"{type(e).__name__}: {e}"})
+                print(f"[FAIL] {arch} {shape}: {type(e).__name__}: {e}", flush=True)
+
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"results": results, "failures": failures}, f, indent=1)
+    several = sum(not r["memory"]["fits_one_card"] for r in results)
+    print(f"\n{len(results)} cells OK ({several} need several cards), "
+          f"{len(failures)} failures" + (f" -> {args.out}" if args.out else ""))
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -5,20 +5,22 @@
         [--lr 3e-4] [--compress-grads] [--device cuda]
 
 Trains the architecture's ``reduced_config()`` on synthetic batches (an
-LM on ``lm_batches``; a recsys model on ``recsys_batches``, in sequence
-mode for ``sasrec``) through the fault-tolerant loop
+LM on ``lm_batches``; NequIP on one ``random_graph`` of 64 nodes, 256
+edges and 4 graphs, every step, its loss over the 4 graphs' energies; a
+recsys model on ``recsys_batches``, in sequence mode for ``sasrec``)
+through the fault-tolerant loop
 (``repro_torch.train.loop``): resume from the latest checkpoint under
 ``--ckpt``, periodic atomic saves, straggler accounting, optional int8
 error-feedback gradient compression.  The flags and the output line are
 the reference's, plus ``--device`` (the card unless ``cpu`` is asked for);
 ``--ckpt`` defaults to a directory under the system's temporary directory.
-``--seq`` applies to LMs only.  NequIP is not ported yet: it raises
-``NotImplementedError`` naming its ROADMAP item.
+``--batch`` applies to LMs and recsys models, ``--seq`` to LMs only.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import tempfile
 
@@ -26,20 +28,12 @@ import numpy as np
 import torch
 
 from repro_torch.common import resolve_device
-from repro_torch.configs.registry import ALL_ARCHS, get_arch_module
-from repro_torch.data.pipelines import lm_batches, recsys_batches
-from repro_torch.models import recsys
+from repro_torch.configs.registry import ALL_ARCHS, RECSYS, get_arch_module
+from repro_torch.data.pipelines import lm_batches, random_graph, recsys_batches
+from repro_torch.models import nequip
 from repro_torch.models.transformer import forward_train, init_params
 from repro_torch.train.loop import train
 from repro_torch.train.optimizer import AdamWConfig
-
-#: the recsys architectures' (init, train loss)
-RECSYS = {
-    "fm": (recsys.fm_init, recsys.fm_train_loss),
-    "sasrec": (recsys.sasrec_init, recsys.sasrec_train_loss),
-    "autoint": (recsys.autoint_init, recsys.autoint_train_loss),
-    "dlrm-mlperf": (recsys.dlrm_init, recsys.dlrm_train_loss),
-}
 
 
 def main(argv=None):
@@ -66,6 +60,13 @@ def main(argv=None):
 
         def loss(cfg, params, batch):
             return forward_train(cfg, params, batch["tokens"], batch["labels"])
+
+    elif mod.FAMILY == "gnn":
+        it = itertools.repeat(random_graph(64, 256, cfg.d_feat_in, n_graphs=4))
+        init = nequip.init_params
+
+        def loss(cfg, params, batch):
+            return nequip.forward_train(cfg, params, batch, 4)
 
     else:
         init, loss = RECSYS[args.arch]

@@ -40,6 +40,7 @@ from repro.train import optimizer as jopt
 from repro_torch.configs import registry as treg
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.data import pipelines as tpipe
+from repro_torch.models import nequip as tnequip
 from repro_torch.models import transformer as ttf
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import compression as tcomp
@@ -444,16 +445,45 @@ def test_registry_names_the_reference_archs():
         treg.get_arch_module("gpt-5")
 
 
-WAITING = {"nequip": "A12.5"}
+def _same_config_field(got, want) -> bool:
+    """A config field of the port against the reference's: dtypes by name,
+    nested config dataclasses (``MoEConfig``) field by field."""
+    if dataclasses.is_dataclass(want):
+        return type(got).__name__ == type(want).__name__ and all(
+            _same_config_field(getattr(got, f.name), getattr(want, f.name))
+            for f in dataclasses.fields(want))
+    if isinstance(got, torch.dtype):
+        return str(got).removeprefix("torch.") == jnp.dtype(want).name
+    return got == want
 
 
-@pytest.mark.parametrize("arch", sorted(WAITING))
-def test_unported_arch_names_its_item(arch, tmp_path):
+@pytest.mark.parametrize("arch", jreg.ALL_ARCHS)
+def test_arch_config_matches_the_reference(arch):
+    mod, jmod = treg.get_arch_module(arch), jreg.get_arch_module(arch)
+    assert (mod.ARCH_ID, mod.FAMILY) == (jmod.ARCH_ID, jmod.FAMILY)
+    assert getattr(mod, "OPT_MOMENT_DTYPE", None) == getattr(jmod, "OPT_MOMENT_DTYPE", None)
+    for make in ("config", "reduced_config"):
+        got, want = getattr(mod, make)(), getattr(jmod, make)()
+        assert ({f.name for f in dataclasses.fields(got)}
+                == {f.name for f in dataclasses.fields(want)}), (arch, make)
+        for f in dataclasses.fields(want):
+            assert _same_config_field(getattr(got, f.name), getattr(want, f.name)), (
+                arch, make, f.name)
+
+
+def test_cli_trains_nequip_on_the_cpu(tmp_path, capsys):
     from repro_torch.launch.train import main
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {WAITING[arch]}"):
-        main(["--arch", arch, "--steps", "1", "--device", "cpu", "--ckpt", str(tmp_path)])
-    assert jreg.get_arch_module(arch).FAMILY in ("lm", "gnn", "recsys")
+    main(["--arch", "nequip", "--steps", "3", "--device", "cpu", "--ckpt", str(tmp_path)])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[nequip] steps=3 loss ") and "restarts=0" in line
+    assert [s for s, _ in tckpt.list_checkpoints(str(tmp_path))] == [3]
+    params = tnequip.abstract_params(treg.get_arch_module("nequip").reduced_config())
+    like = {"params": params, "opt": topt.opt_state_shapes(params)}
+    restored, step = tckpt.restore_checkpoint(tckpt.latest_checkpoint(str(tmp_path))[1], like,
+                                              device="cpu")
+    assert step == 3 and int(restored["opt"]["step"]) == 3
+    assert all(torch.isfinite(x).all() for x in flatten(restored["params"])[0])
 
 
 def test_cli_trains_on_the_cpu(tmp_path):
