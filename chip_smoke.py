@@ -286,6 +286,33 @@ Phases (any failure exits non-zero; nothing is caught):
    cuda`` as a subprocess, exit 0.  No kernel of the port runs in this
    phase, so the kernel line does not change.
 
+14. Several ranks on one card (after phase 13, about 140 s):
+   ``launch.mesh.spawn_ranks`` starts one process a rank on ``cuda:0``
+   (start method ``spawn``, the kernels already built by phase 1, so the
+   ranks only load them).  (a) llama4-scout-17b-a16e at full width, one
+   group (3 local + 1 global layers), bf16, flash attention, capacity
+   factor E (no token dropped), on a (data 1, model 2) mesh over gloo:
+   each rank draws its 8 experts a layer (every leaf and expert from a
+   seed of its own), takes 2 expert-parallel loss-and-gradient steps on
+   1 x 4,096 tokens (the most that fit: two ranks of 33 GiB peaks), the
+   second with its collectives timed (host staging under gloo); exactly
+   8 flash launches a rank a step, all on the Hopper kernel; finite
+   gradients; the same loss on both ranks, within 2e-3 of the local
+   dispatch's on the same weights and tokens in one process after the
+   ranks exit.  No AdamW step: its f32 moments do not fit (the reason is
+   printed).  (d) The same step on a 1-rank NCCL group (16 experts),
+   NCCL's path launched on the card: its launches, finite gradients, the
+   loss against the local dispatch's.  (b) and (c) in one world of 4
+   ranks on a (2, 2) mesh over gloo: (b) the reduced Scout in f32,
+   ``ep_fsdp`` off and on, every gradient leaf on the card against the
+   same ranks on the CPU, within 1e-5 of the leaf's max |value|; (c)
+   NequIP ``minibatch_lg`` partitioned by ``build_partition`` over the 4
+   ranks in f32: the loss and summed gradient against the dense one-card
+   step on the same graph and weights, 8 partitioned AdamW steps with
+   finite losses, step seconds, and the halo bytes a layer beside the
+   reference's |halo| x C x 13 x 4, the forward's collective bytes
+   checked against it exactly.  Every rank failure fails the run.
+
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -319,7 +346,14 @@ whose atomics add in any order on the card, and of the einsums); energies
 (against the CPU's f64 run, under the rotation, at 1 chunk) within 1e-5 +
 8 x 2^-24 sqrt(n) of the largest |energy|, n the nodes a graph sums (the
 f32 sum's own rounding walk: 2.1e-4 at minibatch_lg's 169,984), and the
-loss within twice that, relative.
+loss within twice that, relative.  Several ranks (phase 14): the
+expert-parallel bf16 loss within 2e-3 relative of the local dispatch's
+(the same products in another grouping); the f32 expert-parallel
+gradient, card against CPU, within 1e-5 of each leaf's max |value|; the
+partitioned NequIP loss within phase 13's loss bound of the dense one's
+(both f32 sums of 169,984 node energies in different orders; the dense
+loss in f64 is printed beside them) and its summed gradient within 1e-4
+of each leaf's max |value|.
 """
 
 from __future__ import annotations
@@ -5119,6 +5153,448 @@ def phase_nequip(dev, shapes=None, ogb=None, steps=NEQUIP_STEPS, cli_steps=NEQUI
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: several ranks on one card
+# ---------------------------------------------------------------------------
+
+EP_LAYERS = 4                 # (a), (d): one group of Scout (3 local + 1 global)
+EP_MESH = (1, 2)              # (a): data 1, model 2 on cuda:0 over gloo
+EP_BATCH = (1, 4096)          # tokens a rank a step (its data shard of the batch)
+EP_STEPS = 2                  # (a): the first untimed, the second with its collectives timed
+EP_LOSS_RTOL = 2e-3           # (a), (d) bf16 loss against the local dispatch's
+EP_F32_TOL = 1e-5             # (b): each gradient leaf, card against CPU, of its max |value|
+EP_F32_BATCH = (4, 64)        # (b): the reduced Scout (local chunk 32), 2 sequences a data shard
+NQ_PART_MESH = (2, 2)         # (c): 4 ranks on cuda:0 over gloo
+NQ_PART_STEPS = 8
+NQ_PART_GRAD_TOL = 1e-4       # (c): each summed gradient leaf, of its max |value|
+PHASE14_AXES = ("data", "model")
+
+
+def _sync(dev):
+    """Wait for ``dev`` (a rank's device: the CPU in a rehearsal)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gib(dev, reset=False) -> float:
+    if torch.device(dev).type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def ep_seeded_params(cfg, dev, seed, experts):
+    """Llama 4 parameters whose every leaf, and every expert of an expert
+    leaf, is drawn N(0, 0.02^2) from a seed of its own (norms are ones), so
+    that a rank draws its ``experts`` alone and the whole tree drawn in one
+    process holds the same numbers."""
+    from repro_torch.dist.step import EXPERT_LEAVES
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.train.tree import flatten, unflatten
+
+    shapes, paths = flatten(param_shapes(cfg))
+    leaves = []
+    for i, (shape, path) in enumerate(zip(shapes, paths)):
+        if path[-1].endswith("norm"):
+            leaves.append(torch.ones(shape, dtype=cfg.param_dtype, device=dev))
+            continue
+        blocks = [(g, e) for g in range(shape[0]) for e in experts] \
+            if path[-1] in EXPERT_LEAVES else [None]
+        t = torch.empty((shape[0], len(experts), *shape[2:]) if blocks[0] else shape,
+                        dtype=cfg.param_dtype, device=dev)
+        for b in blocks:
+            gen = torch.Generator(device=dev)
+            if b is None:
+                gen.manual_seed(seed * 1_000_003 + i * 10_007)
+                t.normal_(0.0, 0.02, generator=gen)
+            else:
+                g, e = b
+                gen.manual_seed(seed * 1_000_003 + i * 10_007 + g * 101 + e + 1)
+                t[g, list(experts).index(e)].normal_(0.0, 0.02, generator=gen)
+        leaves.append(t)
+    return unflatten(param_shapes(cfg), leaves)
+
+
+def ep_tokens(cfg, dev, seed, shape):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
+
+
+def ep_rank_train(mesh, cfg, seed, batch, steps):
+    """(a), (d) on one rank: its experts drawn, its data shard of the batch,
+    ``steps`` expert-parallel loss-and-gradient steps (no optimizer step:
+    see the phase).  The flash launches of all steps, each step's loss,
+    seconds, peak memory, bytes this rank's collectives sent, their seconds
+    where timed (host staging under gloo), the gradient's global norm."""
+    import dataclasses
+
+    from repro_torch.dist.sharding import P, local_shard
+    from repro_torch.dist.step import ep_param_specs, ep_value_and_grad, sharded_norm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.train.tree import flatten
+
+    dev = mesh.device
+    cfg = dataclasses.replace(cfg, ep_mesh=mesh, ep_dp_axes=mesh.dp_axes)
+    E, ep, m = cfg.moe.n_experts, mesh.group_size("model"), mesh.group_rank("model")
+    t0 = time.perf_counter()
+    params = ep_seeded_params(cfg, dev, seed, range(m * E // ep, (m + 1) * E // ep))
+    tokens = ep_tokens(cfg, dev, seed, (batch[0] * mesh.group_size("data"), batch[1]))
+    tokens = local_shard(tokens, P("data", None), mesh.shape, dict(zip(mesh.axis_names,
+                                                                        mesh.coords)))
+    _sync(dev)
+    free = torch.cuda.mem_get_info(dev)[0] if torch.device(dev).type == "cuda" else 0
+    out = {"rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
+           "free_gib_after_init": free / 2**30,
+           "experts": [m * E // ep, (m + 1) * E // ep], "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size() for t in flatten(params)[0]),
+           "tokens": tokens.numel(), "steps": []}
+    fa.launches = fa.hopper_launches = 0  # the expert-parallel path's run starts here
+    for step in range(steps):
+        mesh.timed = step > 0
+        mesh.reset_traffic()
+        _peak_gib(dev, reset=True)
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, grads = ep_value_and_grad(cfg, params, {"tokens": tokens, "labels": tokens})
+        norm = sharded_norm(grads, ep_param_specs(params, mesh, cfg.ep_fsdp), mesh)
+        finite = bool(torch.stack([torch.isfinite(g).all() for g in flatten(grads)[0]]).all())
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        out["steps"].append({"loss": float(loss), "s": dt, "grad_norm": float(norm),
+                             "finite": finite, "peak_gib": _peak_gib(dev),
+                             "bytes_sent": mesh.traffic["bytes"],
+                             "collectives": mesh.traffic["calls"],
+                             "staging_s": mesh.traffic["seconds"] if mesh.timed else None})
+        out["grad_bytes"] = sum(g.numel() * g.element_size() for g in flatten(grads)[0])
+        del grads
+    out["launches"], out["hopper_launches"] = fa.launches, fa.hopper_launches
+    return out
+
+
+def ep_rank_f32(mesh, seed):
+    """(b) on one rank: the reduced Scout in f32, ``ep_fsdp`` off and on,
+    its loss and gradient blocks on the card and on the CPU (same ranks,
+    same gloo groups)."""
+    import dataclasses
+
+    from repro_torch.configs import llama4_scout_17b_a16e as scout
+    from repro_torch.dist.sharding import P, local_shard
+    from repro_torch.dist.step import ep_param_specs, ep_value_and_grad, shard_tree
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.tree import flatten, map_leaves
+
+    # the ranks share the host's cores for their CPU run
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // mesh.size))
+    base = scout.reduced_config()
+    full = init_params(base, torch.Generator().manual_seed(seed), "cpu")
+    tokens = local_shard(ep_tokens(base, "cpu", seed, EP_F32_BATCH), P("data", None),
+                         mesh.shape, dict(zip(mesh.axis_names, mesh.coords)))
+    out = {}
+    for fsdp in (False, True):
+        cfg = dataclasses.replace(base, ep_mesh=mesh, ep_dp_axes=mesh.dp_axes, ep_fsdp=fsdp)
+        mine = shard_tree(full, ep_param_specs(full, mesh, fsdp), mesh)
+        for label, dev in (("card", mesh.device), ("cpu", torch.device("cpu"))):
+            tok = tokens.to(dev)
+            loss, grads = ep_value_and_grad(cfg, map_leaves(lambda t: t.to(dev), mine),
+                                            {"tokens": tok, "labels": tok})
+            out[(fsdp, label)] = {"loss": float(loss),
+                                     "grads": [g.cpu() for g in flatten(grads)[0]]}
+    return out
+
+
+def nequip_rank_partitioned(mesh, info, steps):
+    """(c) on one rank: ``minibatch_lg``'s graph (``random_graph``, seed 0,
+    as phase 13's) partitioned by ``build_partition`` over the ranks, this
+    rank's blocks on the card; the forward's collective bytes, the loss and
+    summed gradient, then ``steps`` partitioned AdamW steps."""
+    from repro_torch.configs import nequip as cfgmod
+    from repro_torch.data.pipelines import random_graph
+    from repro_torch.dist.sharding import P, local_shard
+    from repro_torch.dist.step import partitioned_train_step, partitioned_value_and_grad
+    from repro_torch.models import nequip as nq
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.tree import flatten
+
+    dev = mesh.device
+    cfg = cfgmod.config(d_feat_in=info["d_feat"])
+    t0 = time.perf_counter()
+    g = random_graph(info["n_nodes"], info["n_edges"], info["d_feat"],
+                     n_graphs=info["n_graphs"], seed=0)
+    part = nq.build_partition(g["node_feat"], g["edge_index"], g["edge_vec"], g["graph_id"],
+                              mesh.size)
+    host_s = time.perf_counter() - t0
+    spec = P(tuple(mesh.axis_names))
+    coords = dict(zip(mesh.axis_names, mesh.coords))
+    batch = {k: local_shard(torch.from_numpy(v), spec, mesh.shape, coords).to(dev)
+             for k, v in part.items()}
+    batch["energy"] = torch.as_tensor(g["energy"], device=dev)
+    params = nq.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    loss_fn = nq.partitioned_train_step_fn(cfg, mesh, info["n_graphs"])
+    xmax = part["export_idx"].shape[0] // mesh.size
+    with torch.no_grad():
+        mesh.reset_traffic()
+        loss_fn(params, batch)
+        fwd_bytes = mesh.traffic["bytes"]
+    loss, grads = partitioned_value_and_grad(loss_fn, mesh, params, batch)
+    opt = AdamWConfig()
+    state = adamw_init(params, opt)
+    step = partitioned_train_step(loss_fn, mesh, opt)
+    losses, seconds = [], []
+    for _ in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, state, lo = step(params, state, batch)
+        losses.append(float(lo))
+        seconds.append(time.perf_counter() - t0)
+    return {"loss": float(loss), "grads": [x.cpu() for x in flatten(grads)[0]],
+            "losses": losses, "step_seconds": seconds, "host_partition_s": host_s,
+            "nodes": batch["node_feat"].shape[0], "edges": batch["edge_src"].shape[0],
+            "xmax": xmax, "forward_bytes_sent": fwd_bytes, "peak_gib": _peak_gib(dev)}
+
+
+def square_rank(mesh, seed, info, steps):
+    """(b) then (c) on one rank of the (2, 2) world: one spawn for both."""
+    return {"f32": ep_rank_f32(mesh, seed), "nequip": nequip_rank_partitioned(mesh, info, steps)}
+
+
+def phase_multirank(dev, fa, ep_cfg=None, steps=EP_STEPS, batch=EP_BATCH, nq_info=None,
+                    nq_steps=NQ_PART_STEPS, d_backend="nccl", d_device="cuda:{rank}"):
+    """Phase 14: several ranks on one card (``launch.mesh.spawn_ranks``).
+    (a) Scout at full width (``ep_cfg``: default its config cut to
+    ``EP_LAYERS``, flash attention, capacity factor E), one group, on a
+    (data 1, model 2) mesh over gloo; (b) the reduced Scout in f32 on (2,
+    2), card against CPU; (c) NequIP ``minibatch_lg`` (``nq_info``: a
+    ``GNN_SHAPES`` entry) partitioned over 4 ranks against the dense
+    one-card step; (d) (a)'s code on a 1-rank group of ``d_backend`` (NCCL;
+    a rehearsal on the CPU passes gloo) on ``d_device``.  Returns the flash launches of (a) and (d) and the
+    numbers.  On CPU tensors (a rehearsal) the flash wrapper runs its plain
+    version and launches nothing, and the launch checks expect 0."""
+    import dataclasses
+
+    from repro_torch.configs import llama4_scout_17b_a16e as scout
+    from repro_torch.configs import nequip as nq_cfgmod
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.dist.sharding import from_shards
+    from repro_torch.dist.step import ep_param_specs
+    from repro_torch.launch.mesh import Mesh, spawn_ranks
+    from repro_torch.models import nequip as nq
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.tree import flatten
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    runs = {"card": card}
+    free_device_memory()
+
+    # (a) Scout at full width, one group, 2 ranks of 8 experts on cuda:0 over gloo
+    base = scout.config()
+    if ep_cfg is None:
+        ep_cfg = dataclasses.replace(base, n_layers=EP_LAYERS, attention_impl="flash")
+    E = ep_cfg.moe.n_experts
+    cfg = dataclasses.replace(ep_cfg, moe=dataclasses.replace(ep_cfg.moe,
+                                                              capacity_factor=float(E)))
+    per_step = 2 * cfg.n_layers if torch.device(dev).type == "cuda" else 0
+    t0 = time.perf_counter()
+    # two ranks of 33 GiB peaks share the card: segments that grow in place
+    # keep the caching allocator from fragmenting it (the ranks' setting only)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn_ranks(ep_rank_train, EP_MESH, "gloo", dev, args=(cfg, 0, batch, steps),
+                            axes=PHASE14_AXES)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    a_s = time.perf_counter() - t0
+    n_ranks = len(ranks)
+    for r in ranks:
+        require((r["launches"], r["hopper_launches"]) == (per_step * steps,) * 2,
+                ("ep flash launches (all, Hopper) a rank", r["rank"], r["launches"],
+                 r["hopper_launches"], "steps", steps))
+        require(all(s["finite"] for s in r["steps"]), ("ep gradients finite", r["rank"]))
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    require(all(s["loss"] == losses[i] for r in ranks for i, s in enumerate(r["steps"])),
+            ("ep loss differs between ranks", [[s["loss"] for s in r["steps"]] for r in ranks]))
+    last = [r["steps"][-1] for r in ranks]
+    staging = max(s["staging_s"] for s in last)
+    step_s = max(s["s"] for s in last)
+    grad_gb = ranks[0]["grad_bytes"] / 1e9
+    param_gb = ranks[0]["param_bytes"] / 1e9
+    # functional AdamW: f32 moments (2 x 4 bytes a parameter) and a new copy
+    # of the parameters, beside the parameters and the gradient
+    n_params = ranks[0]["param_bytes"] // 2
+    adamw_gb = n_ranks * (param_gb * 2 + grad_gb + n_params * 8 / 1e9)
+    runs["ep"] = {"mesh": EP_MESH, "layers": cfg.n_layers, "tokens_a_rank": ranks[0]["tokens"],
+                  "capacity_factor": float(E), "steps": [r["steps"] for r in ranks],
+                  "init_s": [r["init_s"] for r in ranks], "phase_s": a_s,
+                  "param_gb_a_rank": param_gb, "grad_gb_a_rank": grad_gb,
+                  "adamw_gb_all_ranks": adamw_gb,
+                  "launches_a_rank": [r["launches"] for r in ranks]}
+    log(f"[multirank] (a) {cfg.name} at d_model {cfg.d_model}, {cfg.n_layers} layers, on a (data, model) = "
+        f"{EP_MESH} mesh: {n_ranks} ranks on {dev} over gloo, experts {ranks[0]['experts']} "
+        f"and {ranks[-1]['experts']}; {ranks[0]['tokens']:,} tokens a rank a step "
+        f"(batch {batch}), capacity factor {E} (no drop); {param_gb:.2f} GB of bf16 weights "
+        f"and {grad_gb:.2f} GB of gradients a rank; init {max(runs['ep']['init_s']):.1f} s; "
+        f"card memory free after every rank's weights "
+        f"{min(r['free_gib_after_init'] for r in ranks):.2f} GiB")
+    for i in range(steps):
+        st = [r["steps"][i] for r in ranks]
+        log(f"[multirank] (a) step {i + 1}: loss {st[0]['loss']:.6f}, "
+            f"{max(s['s'] for s in st):.3f} s, grad norm {st[0]['grad_norm']:.5g}, peak "
+            + "/".join(f"{s['peak_gib']:.2f}" for s in st) + " GiB a rank, "
+            + "/".join(f"{s['bytes_sent'] / 1e9:.3f}" for s in st) + " GB sent a rank in "
+            f"{st[0]['collectives']} collectives"
+            + (f", host staging {max(s['staging_s'] for s in st):.3f} s "
+               f"({max(s['staging_s'] for s in st) / max(s['s'] for s in st):.1%} of the step)"
+               if st[0]["staging_s"] is not None else " (collectives untimed)"))
+    log(f"[multirank] (a) flash launches a rank over {steps} steps: "
+        + ", ".join(f"{r['launches']} ({r['hopper_launches']} Hopper)" for r in ranks)
+        + f" = {per_step} a step (forward + the checkpointed recompute)")
+    runs["ep"]["adamw"] = (
+        f"no AdamW step: with f32 moments it needs {adamw_gb:.1f} GB on the card for "
+        f"{n_ranks} ranks (parameters {param_gb:.1f} GB, their new copy {param_gb:.1f} GB, "
+        f"gradient {grad_gb:.1f} GB and moments {n_params * 8 / 1e9:.1f} GB a rank), more "
+        "than its 80 GB" if adamw_gb > 80 else "AdamW fits but is not run")
+    log(f"[multirank] (a) {runs['ep']['adamw']}")
+
+    # the same weights and tokens through the local dispatch in one process
+    free_device_memory()
+    t0 = time.perf_counter()
+    full = ep_seeded_params(cfg, dev, 0, range(E))
+    tokens = ep_tokens(cfg, dev, 0, (batch[0] * EP_MESH[0], batch[1]))
+    with torch.no_grad():
+        local = float(forward_train(cfg, full, tokens, tokens))
+    del full
+    free_device_memory()
+    rel = abs(losses[0] - local) / abs(local)
+    require(rel <= EP_LOSS_RTOL, ("ep loss against the local dispatch", losses[0], local, rel))
+    runs["ep"].update(local_loss=local, loss_rel=rel, local_s=time.perf_counter() - t0)
+    log(f"[multirank] (a) loss {losses[0]:.6f} against the local dispatch's {local:.6f} on the "
+        f"same weights and tokens in one process: {rel:.2e} relative (tolerance "
+        f"{EP_LOSS_RTOL}); {runs['ep']['local_s']:.1f} s")
+
+    # (d) the same code on a 1-rank NCCL group
+    t0 = time.perf_counter()
+    (nccl,) = spawn_ranks(ep_rank_train, (1, 1), d_backend, d_device, args=(cfg, 0, batch, 1),
+                          axes=PHASE14_AXES)
+    require((nccl["launches"], nccl["hopper_launches"]) == (per_step,) * 2,
+            ("nccl flash launches", nccl["launches"], nccl["hopper_launches"]))
+    require(nccl["steps"][0]["finite"], "nccl gradients finite")
+    d_rel = abs(nccl["steps"][0]["loss"] - local) / abs(local)
+    require(d_rel <= EP_LOSS_RTOL, ("nccl loss against the local dispatch", d_rel))
+    runs["nccl"] = {"steps": nccl["steps"], "loss_rel": d_rel, "launches": nccl["launches"],
+                    "phase_s": time.perf_counter() - t0}
+    log(f"[multirank] (d) the same step on a 1-rank {d_backend} group ({E} experts, {cfg.n_layers} "
+        f"layers): loss {nccl['steps'][0]['loss']:.6f} ({d_rel:.2e} from the local dispatch), "
+        f"{nccl['steps'][0]['s']:.3f} s, peak {nccl['steps'][0]['peak_gib']:.2f} GiB, "
+        f"{nccl['steps'][0]['collectives']} collectives, {nccl['launches']} flash launches "
+        f"({nccl['hopper_launches']} Hopper); {runs['nccl']['phase_s']:.1f} s")
+
+    # (b) the reduced Scout in f32 on (2, 2), the card against the CPU, and
+    # (c) NequIP partitioned, in one world of 4 ranks on the card over gloo
+    t0 = time.perf_counter()
+    info = nq_info or GNN_SHAPES["minibatch_lg"]
+    square = spawn_ranks(square_rank, NQ_PART_MESH, "gloo", dev, args=(0, info, nq_steps),
+                         axes=PHASE14_AXES)
+    square_s = time.perf_counter() - t0
+    f32, parts = [r["f32"] for r in square], [r["nequip"] for r in square]
+    mesh = Mesh(PHASE14_AXES, NQ_PART_MESH)
+    like = scout.reduced_config()
+    from repro_torch.models.transformer import param_shapes
+
+    shapes = param_shapes(like)
+    worst = {}
+    for fsdp in (False, True):
+        specs = flatten(ep_param_specs(shapes, mesh, fsdp))[0]
+        got = [from_shards([r[(fsdp, "card")]["grads"][j] for r in f32], s, mesh)
+               for j, s in enumerate(specs)]
+        want = [from_shards([r[(fsdp, "cpu")]["grads"][j] for r in f32], s, mesh)
+                for j, s in enumerate(specs)]
+        errs = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(got, want)]
+        worst[fsdp] = max(errs)
+        require(worst[fsdp] <= EP_F32_TOL, ("f32 ep gradient, card against CPU", fsdp, errs))
+        loss_rel = abs(f32[0][(fsdp, "card")]["loss"] - f32[0][(fsdp, "cpu")]["loss"])
+        require(loss_rel <= EP_F32_TOL * abs(f32[0][(fsdp, "cpu")]["loss"]), ("f32 ep loss", fsdp))
+    runs["ep_f32"] = {"worst_leaf_rel": {str(k): v for k, v in worst.items()}}
+    log(f"[multirank] (b) {like.name} in f32 on (2, 2), 4 ranks on {dev} over gloo, batch "
+        f"{EP_F32_BATCH}: every gradient leaf on the card against the same ranks on the CPU, "
+        f"worst {worst[False]:.2e} (ep_fsdp off) and {worst[True]:.2e} (on) of the leaf's "
+        f"max |value| (tolerance {EP_F32_TOL}); the world of (b) and (c) {square_s:.1f} s")
+
+    # (c) NequIP minibatch_lg partitioned over 4 ranks against the dense
+    # one-card step, both in f32, and the dense loss in f64 beside them
+    t0 = time.perf_counter()
+    ncfg = nq_cfgmod.config(d_feat_in=info["d_feat"])
+    b, _ = nequip_graph(info, dev)
+    params = nq.init_params(ncfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+    def dense_loss(p, bb):
+        return nq.forward_train(ncfg, p, bb, info["n_graphs"], n_edge_chunks=info["edge_chunks"])
+
+    loss, grads = value_and_grad(dense_loss, params, b)
+    loss = float(loss)
+    with torch.no_grad():
+        loss64 = float(dense_loss(
+            {k: ([{n: w.double() for n, w in lp.items()} for lp in v] if k == "layers"
+                 else v.double()) for k, v in params.items()},
+            {k: v.double() if v.is_floating_point() else v for k, v in b.items()}))
+    loss_tol = 2 * nequip_energy_rtol(info)
+    loss_rel = max(abs(r["loss"] - loss) for r in parts) / abs(loss)
+    require(loss_rel <= loss_tol, ("partitioned loss against the dense", loss_rel, loss_tol))
+    grad_err = max(float((g - w.cpu()).abs().max() / w.abs().max().clamp_min(1e-30))
+                   for r in parts for g, w in zip(r["grads"], flatten(grads)[0]))
+    require(grad_err <= NQ_PART_GRAD_TOL, ("partitioned gradient against the dense", grad_err))
+    for r in parts:
+        require(len(r["losses"]) == nq_steps and all(np.isfinite(r["losses"])),
+                ("partitioned losses", r["losses"]))
+    n, C, L = len(parts), ncfg.channels, ncfg.n_layers
+    xmax = parts[0]["xmax"]
+    formula = nq.halo_bytes_per_layer(n, xmax, C)
+    # the forward's all-gathers (s alone on layer 0, then s, v, t: 13 floats a
+    # channel) and the energies' all-reduce, as dist.collectives counts them
+    sent = (n - 1) * xmax * C * 4 * (1 + 13 * (L - 1)) + int(4 * info["n_graphs"] * 2 * (n - 1) / n)
+    med = float(np.median(parts[0]["step_seconds"][1:]))
+    runs["nequip_partitioned"] = {
+        "ranks": n, "loss": loss, "loss_rel": loss_rel, "grad_err": grad_err,
+        "losses": parts[0]["losses"], "step_seconds": parts[0]["step_seconds"],
+        "step_median_s": med, "xmax": xmax, "halo_bytes_per_layer": formula,
+        "forward_bytes_sent_a_rank": [r["forward_bytes_sent"] for r in parts],
+        "nodes_a_rank": parts[0]["nodes"], "edges_a_rank": parts[0]["edges"],
+        "host_partition_s": parts[0]["host_partition_s"], "loss_f64": loss64,
+        "part_f64_rel": abs(parts[0]["loss"] - loss64) / abs(loss64),
+        "dense_f64_rel": abs(loss - loss64) / abs(loss64), "loss_tol": loss_tol,
+        "peak_gib": [r["peak_gib"] for r in parts], "dense_s": time.perf_counter() - t0}
+    require(all(r["forward_bytes_sent"] == sent for r in parts),
+            ("halo bytes sent a rank", [r["forward_bytes_sent"] for r in parts], sent))
+    log(f"[multirank] (c) nequip ({info['n_nodes']:,} nodes, {info['n_edges']:,} edges, "
+        f"{info['d_feat']} features) partitioned by build_partition over {n} ranks on {dev} "
+        f"over gloo: {parts[0]['nodes']:,} nodes and {parts[0]['edges']:,} edge slots a rank, "
+        f"{xmax:,} halo exports a rank (partition {parts[0]['host_partition_s']:.2f} s on the "
+        f"host); loss {parts[0]['loss']:.6f} against the dense one-card step's {loss:.6f}: "
+        f"{loss_rel:.2e} relative (tolerance {loss_tol:.2e}, phase 13's: twice the energies' "
+        f"f32 summation bound); the dense loss in f64 {loss64:.6f}, from which the "
+        f"partitioned one lies {runs['nequip_partitioned']['part_f64_rel']:.2e} and the dense "
+        f"f32 one {runs['nequip_partitioned']['dense_f64_rel']:.2e}; summed gradient within "
+        f"{grad_err:.2e} of each leaf's max (tolerance {NQ_PART_GRAD_TOL}); {nq_steps} AdamW "
+        f"steps, losses " + " ".join(f"{x:.4g}" for x in parts[0]["losses"])
+        + f"; median of steps 2-{nq_steps} {med:.4f} s; halo a layer after the first: "
+        f"|halo| x C x 13 x 4 = {n} x {xmax:,} x {C} x 13 x 4 = {formula:,} bytes gathered "
+        f"(the reference's formula), {sent:,} bytes sent a rank by the forward's collectives "
+        f"over its {L} layers (layer 0 gathers s alone); peak "
+        + "/".join(f"{x:.2f}" for x in runs["nequip_partitioned"]["peak_gib"]) + " GiB a rank")
+    del b, params, grads
+    free_device_memory()
+    runs["phase_s"] = time.perf_counter() - t_phase
+    log(f"[multirank] phase body {runs['phase_s']:.1f} s; {nvidia_smi_line()}")
+    launches = sum(r["launches"] for r in ranks) + nccl["launches"]
+    return {"flash_attention": launches}, runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU",
@@ -5246,11 +5722,15 @@ def main() -> int:
     t0 = time.perf_counter()
     nequip_runs = phase_nequip(dev)
     log(f"[nequip] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["multirank"], multirank_runs = phase_multirank(dev, flash_attention)
+    log(f"[multirank] phase {time.perf_counter() - t0:.1f} s")
     log("[lm] runs " + json.dumps(lm_runs))
     log("[train] runs " + json.dumps(train_runs))
     log("[llama4] runs " + json.dumps(l4_runs))
     log("[recsys] runs " + json.dumps(recsys_runs))
     log("[nequip] runs " + json.dumps(nequip_runs))
+    log("[multirank] runs " + json.dumps(multirank_runs))
     for r in records:
         # each kernel's launches on the paths that run it, each path counted
         # from 0 just before it ran

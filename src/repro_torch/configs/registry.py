@@ -6,18 +6,31 @@
 (architecture x input shape) entry of the 40-cell dry-run and roofline
 matrix: its step function (train, prefill, decode, serve or retrieval)
 through the port's own entry points, its abstract inputs (trees of
-``meta`` tensors with the reference's shapes and dtypes: nothing is
-allocated), and its roofline metadata, the reference's analytic FLOP and
-byte models number for number.
+``meta`` tensors with the reference's global shapes and dtypes: nothing is
+allocated), the partition specs of those inputs and of its outputs on the
+given mesh (``in_specs``, ``out_specs``: the reference's, spec for spec,
+by ``dist.sharding``'s rules), and its roofline metadata, the reference's
+analytic FLOP and byte models number for number.
 
-The port runs a cell on one card.  The reference's partition specs
-(``in_specs``, ``out_specs``) lay the inputs over a device mesh and wait
-with ROADMAP A12.2b, as do its mesh-bound forms: expert-parallel MoE on
-the LM train and prefill cells (the port dispatches locally), the
-candidate sharding constraint of DLRM's retrieval, and NequIP's
-partitioned halo layout (``minibatch_lg`` and ``ogb_products`` take the
-dense layout here, ``edge_index`` for ``edge_src``/``edge_dst``/
-``export_idx``; their ``meta`` stays the reference's).
+The mesh (``mesh=``, default the (1, 1) host mesh) is a ``launch.mesh
+.Mesh`` or a ``RankMesh``.  On one rank every cell keeps its one-card
+layout and step.  On more than one:
+
+* an LM train cell's step is the expert-parallel one (``dist.step
+  .ep_train_step``, ``ep_mesh`` set as the reference's, with its
+  ``ep_fsdp``): it takes this rank's blocks in ``ep_param_specs``' layout
+  and its data shard;
+* ``minibatch_lg`` and ``ogb_products`` take the reference's partitioned
+  layout (``edge_src``, ``edge_dst``, ``export_idx``; ``node_n // 8``
+  halo exports a rank) and the partitioned step on this rank's blocks;
+* these steps run on a ``RankMesh`` only (a description has no process
+  groups); every other cell's step runs whole wherever it is called.
+
+The specs' tensor-parallel and FSDP placement of the dense weights is
+GSPMD's in the reference and is not run here, nor are its layout hints
+(the sequence-parallel residual, context-parallel attention, DLRM's
+candidate sharding constraint in retrieval): a per-rank program has no
+global layout to hint at.
 
 A decode cell's position is a host integer in the port
 (``forward_decode``'s ``t``; ROADMAP C11).  Its abstract input is the
@@ -29,16 +42,28 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
+from repro_torch.dist.sharding import (
+    P,
+    axes_for_mesh,
+    dp_size,
+    lm_batch_specs,
+    lm_cache_specs,
+    lm_param_specs,
+    opt_state_specs,
+    recsys_param_specs,
+    zero_spec_for,
+)
+from repro_torch.launch.mesh import RankMesh, make_host_mesh
 from repro_torch.models import nequip as nequip_mod
 from repro_torch.models import recsys as recsys_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.train.loop import value_and_grad
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, opt_state_shapes
-from repro_torch.train.tree import flatten, map_leaves
+from repro_torch.train.tree import flatten, map_leaves, unflatten
 
 _ARCH_MODULES = {
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
@@ -115,6 +140,8 @@ class CellSpec:
     kind: str
     step_fn: Callable
     abstract_args: tuple
+    in_specs: tuple
+    out_specs: Any
     meta: dict
 
 
@@ -124,6 +151,38 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 def _params_total(params) -> int:
     return sum(leaf.numel() for leaf in flatten(params)[0])
+
+
+def _maybe_axes(n: int, mesh, axes_tuple):
+    """The longest prefix of ``axes_tuple`` whose sizes' product divides n
+    (one name for a prefix of one), else None."""
+    prod = 1
+    usable = []
+    for a in axes_tuple:
+        prod *= mesh.shape[a]
+        if n % prod:
+            break
+        usable.append(a)
+    if not usable:
+        return None
+    return tuple(usable) if len(usable) > 1 else usable[0]
+
+
+def _replicated(tree):
+    return map_leaves(lambda _: P(), tree)
+
+
+def _on_ranks(mesh, make_step):
+    """``make_step()`` where ``mesh`` is a ``RankMesh``; else a step that
+    raises (a description has no process groups to run over)."""
+    if isinstance(mesh, RankMesh):
+        return make_step()
+
+    def step(*args):
+        raise RuntimeError(f"this cell's step runs on the {mesh.size} ranks of a started "
+                           "world: build it on init_rank_mesh's RankMesh")
+
+    return step
 
 
 def _train_step(loss_fn, opt_cfg: AdamWConfig):
@@ -191,13 +250,25 @@ def _lm_meta(cfg: tf_mod.LMConfig, kind: str, B: int, S: int):
     )
 
 
-def _lm_cell(arch_id, mod, shape_id, reduced):
+def _lm_cell(arch_id, mod, shape_id, mesh, reduced):
     cfg = mod.reduced_config() if reduced else mod.config()
+    axes = axes_for_mesh(mesh)
     info = LM_SHAPES[shape_id]
     B, S = info["batch"], info["seq"]
     kind = info["kind"]
     params_abs = tf_mod.init_params(cfg, None, device="meta")
     meta = _lm_meta(cfg, kind, B, S)
+    pspecs = lm_param_specs(cfg, axes, mesh, params_abs)
+
+    # FSDP: where tensor parallelism alone leaves more than 2 GiB of
+    # parameters a device, every weight but the router takes the data axes
+    needs_fsdp = cfg.param_count() * cfg.param_dtype.itemsize / mesh.shape[axes.mdl] > 2 * 2**30
+    if needs_fsdp:
+        dpn = dp_size(mesh, axes)
+        leaves, paths = flatten(params_abs)
+        pspecs = unflatten(pspecs, [
+            spec if path[-1] == "router" else zero_spec_for(spec, tuple(ab.shape), axes, dpn)
+            for spec, ab, path in zip(flatten(pspecs)[0], leaves, paths)])
 
     if kind == "train":
         opt_dtype = (torch.bfloat16 if getattr(mod, "OPT_MOMENT_DTYPE", "") == "bfloat16"
@@ -205,21 +276,36 @@ def _lm_cell(arch_id, mod, shape_id, reduced):
         opt_cfg = AdamWConfig(moment_dtype=opt_dtype)
         batch_abs = {"tokens": _meta((B, S), torch.int32), "labels": _meta((B, S), torch.int32)}
 
-        def loss_fn(params, batch):
-            return tf_mod.forward_train(cfg, params, batch["tokens"], batch["labels"])
+        if mesh.size > 1:
+            def make_step():
+                from repro_torch.dist.step import ep_train_step
 
-        return CellSpec(arch=arch_id, shape=shape_id, kind=kind,
-                        step_fn=_train_step(loss_fn, opt_cfg),
+                return ep_train_step(dataclasses.replace(
+                    cfg, ep_mesh=mesh, ep_dp_axes=tuple(axes.dp), ep_fsdp=needs_fsdp), opt_cfg)
+
+            step = _on_ranks(mesh, make_step)
+        else:
+            def loss_fn(params, batch):
+                return tf_mod.forward_train(cfg, params, batch["tokens"], batch["labels"])
+
+            step = _train_step(loss_fn, opt_cfg)
+        ospecs = opt_state_specs(pspecs, params_abs, axes, dp_size(mesh, axes))
+        return CellSpec(arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
                         abstract_args=(params_abs, opt_state_shapes(params_abs, opt_cfg),
                                        batch_abs),
-                        meta=meta)
+                        in_specs=(pspecs, ospecs, lm_batch_specs(axes)),
+                        out_specs=(pspecs, ospecs, P()), meta=meta)
 
+    cspecs = lm_cache_specs(cfg, axes, B, mesh)
+    logits_spec = P(_maybe_axes(B, mesh, axes.dp), axes.mdl)
     if kind == "prefill":
         def step(params, tokens):
             return tf_mod.forward_prefill(cfg, params, tokens)
 
         return CellSpec(arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
-                        abstract_args=(params_abs, _meta((B, S), torch.int32)), meta=meta)
+                        abstract_args=(params_abs, _meta((B, S), torch.int32)),
+                        in_specs=(pspecs, P(axes.dp, None)), out_specs=(logits_spec, cspecs),
+                        meta=meta)
 
     # decode
     def step(params, token, cache, t):
@@ -230,7 +316,8 @@ def _lm_cell(arch_id, mod, shape_id, reduced):
         arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
         abstract_args=(params_abs, _meta((B,), torch.int32),
                        tf_mod.init_cache(cfg, B, S, device="meta"), _meta((), torch.int32)),
-        meta=meta)
+        in_specs=(pspecs, P(_maybe_axes(B, mesh, axes.dp)), cspecs, P()),
+        out_specs=(logits_spec, cspecs), meta=meta)
 
 
 # ===========================================================================
@@ -262,8 +349,9 @@ def _gnn_meta(cfg, info):
     )
 
 
-def _gnn_cell(arch_id, mod, shape_id, reduced):
+def _gnn_cell(arch_id, mod, shape_id, mesh, reduced):
     info = GNN_SHAPES[shape_id]
+    axes = axes_for_mesh(mesh)
     if reduced:
         cfg = mod.reduced_config()
         N, E, F, G = 64, 128, cfg.d_feat_in, 4
@@ -274,6 +362,40 @@ def _gnn_cell(arch_id, mod, shape_id, reduced):
         chunks = info["edge_chunks"]
     params_abs = nequip_mod.abstract_params(cfg)
     opt_cfg = AdamWConfig()
+    opt_abs = opt_state_shapes(params_abs, opt_cfg)
+    pspecs, ospecs = _replicated(params_abs), _replicated(opt_abs)
+    meta = _gnn_meta(cfg, info if not reduced else dict(n_nodes=N, n_edges=E, edge_chunks=chunks))
+
+    if info.get("partitioned", False) and not reduced and mesh.size > 1:
+        # the distributed-GNN layout: nodes and edges partitioned by the data
+        # pipeline, fixed-size halo exports (1/8 of a node block)
+        ndev = mesh.size
+        xmax = max(1, N // ndev // 8)
+        aspec = axes.all_axes if len(axes.all_axes) > 1 else axes.all_axes[0]
+        batch_abs = {
+            "node_feat": _meta((N, F), torch.float32),
+            "edge_src": _meta((E,), torch.int32),
+            "edge_dst": _meta((E,), torch.int32),
+            "edge_vec": _meta((E, 3), torch.float32),
+            "export_idx": _meta((ndev * xmax,), torch.int32),
+            "graph_id": _meta((N,), torch.int32),
+            "energy": _meta((G,), torch.float32),
+        }
+        bspecs = {k: P() if k == "energy" else P(aspec, None) if v.dim() == 2 else P(aspec)
+                  for k, v in batch_abs.items()}
+
+        def make_step():
+            from repro_torch.dist.step import partitioned_train_step
+
+            loss_fn = nequip_mod.partitioned_train_step_fn(cfg, mesh, G, n_edge_chunks=chunks)
+            return partitioned_train_step(loss_fn, mesh, opt_cfg)
+
+        return CellSpec(arch=arch_id, shape=shape_id, kind="train",
+                        step_fn=_on_ranks(mesh, make_step),
+                        abstract_args=(params_abs, opt_abs, batch_abs),
+                        in_specs=(pspecs, ospecs, bspecs), out_specs=(pspecs, ospecs, P()),
+                        meta=meta)
+
     batch_abs = {
         "node_feat": _meta((N, F), torch.float32),
         "edge_index": _meta((2, E), torch.int32),
@@ -281,16 +403,21 @@ def _gnn_cell(arch_id, mod, shape_id, reduced):
         "graph_id": _meta((N,), torch.int32),
         "energy": _meta((G,), torch.float32),
     }
+    if info.get("shard", True) and not reduced:
+        node_ax = _maybe_axes(N, mesh, axes.all_axes)
+        edge_ax = _maybe_axes(E, mesh, axes.all_axes)
+        bspecs = {"node_feat": P(node_ax, None), "edge_index": P(None, edge_ax),
+                  "edge_vec": P(edge_ax, None), "graph_id": P(node_ax), "energy": P()}
+    else:
+        bspecs = _replicated(batch_abs)
 
     def loss_fn(params, batch):
         return nequip_mod.forward_train(cfg, params, batch, G, n_edge_chunks=chunks)
 
     return CellSpec(
         arch=arch_id, shape=shape_id, kind="train", step_fn=_train_step(loss_fn, opt_cfg),
-        abstract_args=(params_abs, opt_state_shapes(params_abs, opt_cfg), batch_abs),
-        meta=_gnn_meta(cfg, info if not reduced else dict(
-            n_nodes=N, n_edges=E, edge_chunks=chunks)),
-    )
+        abstract_args=(params_abs, opt_abs, batch_abs),
+        in_specs=(pspecs, ospecs, bspecs), out_specs=(pspecs, ospecs, P()), meta=meta)
 
 
 # ===========================================================================
@@ -370,8 +497,9 @@ def _recsys_serve_step(fam, cfg):
                                                         batch["sparse"])
 
 
-def _recsys_cell(arch_id, mod, shape_id, reduced):
+def _recsys_cell(arch_id, mod, shape_id, mesh, reduced):
     info = RECSYS_SHAPES[shape_id]
+    axes = axes_for_mesh(mesh)
     cfg = mod.reduced_config() if reduced else mod.config()
     kind = info["kind"]
     B = info["batch"] if not reduced else 8
@@ -385,6 +513,10 @@ def _recsys_cell(arch_id, mod, shape_id, reduced):
             lambda ab: _meta(ab.shape, torch.bfloat16)
             if ab.dim() == 2 and ab.shape[0] >= recsys_mod.LARGE_TABLE_ROWS else ab,
             params_abs)
+    pspecs = recsys_param_specs(params_abs, axes, mesh)
+
+    def batch_specs(batch_abs):
+        return {k: P(axes.dp) if v.dim() == 1 else P(axes.dp, None) for k, v in batch_abs.items()}
 
     meta = dict(
         model_flops=_recsys_flops_fwd(fam, cfg, B) * (3 if kind == "train" else 1),
@@ -398,12 +530,14 @@ def _recsys_cell(arch_id, mod, shape_id, reduced):
 
     if kind == "train":
         opt_cfg = AdamWConfig()
+        ospecs = opt_state_specs(pspecs, params_abs, axes, dp_size(mesh, axes))
+        batch_abs = _recsys_inputs(fam, cfg, B)
         return CellSpec(
             arch=arch_id, shape=shape_id, kind=kind,
             step_fn=_train_step(lambda p, batch: loss_fn(cfg, p, batch), opt_cfg),
-            abstract_args=(params_abs, opt_state_shapes(params_abs, opt_cfg),
-                           _recsys_inputs(fam, cfg, B)),
-            meta=meta)
+            abstract_args=(params_abs, opt_state_shapes(params_abs, opt_cfg), batch_abs),
+            in_specs=(pspecs, ospecs, batch_specs(batch_abs)),
+            out_specs=(pspecs, ospecs, P()), meta=meta)
 
     if kind == "serve":
         batch_abs = _recsys_inputs(fam, cfg, B)
@@ -413,11 +547,14 @@ def _recsys_cell(arch_id, mod, shape_id, reduced):
             batch_abs.pop("label")
         return CellSpec(arch=arch_id, shape=shape_id, kind=kind,
                         step_fn=_recsys_serve_step(fam, cfg),
-                        abstract_args=(params_abs, batch_abs), meta=meta)
+                        abstract_args=(params_abs, batch_abs),
+                        in_specs=(pspecs, batch_specs(batch_abs)), out_specs=P(axes.dp),
+                        meta=meta)
 
     # retrieval: one query against n_candidates
     ncand = info.get("n_candidates", 1000) if not reduced else 64
     cand_abs = _meta((ncand,), torch.int32)
+    cand_spec = P(_maybe_axes(ncand, mesh, axes.all_axes))
     meta = dict(meta)
     meta["model_flops"] = _recsys_flops_fwd(fam, cfg, ncand)
     meta["analytic_flops"] = meta["model_flops"]
@@ -429,6 +566,7 @@ def _recsys_cell(arch_id, mod, shape_id, reduced):
             return recsys_mod.sasrec_retrieval(cfg, params, item_seq, cand)
 
         args = (params_abs, _meta((1, cfg.seq_len), torch.int32), cand_abs)
+        ispecs = (pspecs, P(), cand_spec)
     elif fam in ("fm", "autoint"):
         retrieval = recsys_mod.fm_retrieval if fam == "fm" else recsys_mod.autoint_retrieval
 
@@ -436,15 +574,17 @@ def _recsys_cell(arch_id, mod, shape_id, reduced):
             return retrieval(cfg, params, user, cand)
 
         args = (params_abs, _meta((cfg.n_sparse,), torch.int32), cand_abs)
+        ispecs = (pspecs, P(), cand_spec)
     else:
         def step(params, dense, user, cand):
             return recsys_mod.dlrm_retrieval(cfg, params, dense, user, cand)
 
         args = (params_abs, _meta((cfg.n_dense,), torch.float32),
                 _meta((cfg.n_sparse,), torch.int32), cand_abs)
+        ispecs = (pspecs, P(), P(), cand_spec)
 
     return CellSpec(arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
-                    abstract_args=args, meta=meta)
+                    abstract_args=args, in_specs=ispecs, out_specs=cand_spec, meta=meta)
 
 
 # ===========================================================================
@@ -452,20 +592,22 @@ def _recsys_cell(arch_id, mod, shape_id, reduced):
 # ===========================================================================
 
 
-def build_cell(arch_id: str, shape_id: str, reduced: bool = False) -> CellSpec:
-    """The cell of ``arch_id`` at ``shape_id`` (at the arch's
-    ``reduced_config()`` with ``reduced``; LM cells keep the shape's batch
-    and length, GNN cells take 64 nodes, 128 edges and 4 graphs, recsys
-    cells a batch of 8 and 64 candidates, as the reference's)."""
+def build_cell(arch_id: str, shape_id: str, reduced: bool = False, mesh=None) -> CellSpec:
+    """The cell of ``arch_id`` at ``shape_id`` on ``mesh`` (default
+    ``make_host_mesh()``; at the arch's ``reduced_config()`` with
+    ``reduced``; LM cells keep the shape's batch and length, GNN cells take
+    64 nodes, 128 edges and 4 graphs, recsys cells a batch of 8 and 64
+    candidates, as the reference's)."""
+    mesh = make_host_mesh() if mesh is None else mesh
     mod = get_arch_module(arch_id)
     if shape_id not in ARCH_SHAPES[arch_id]:
         raise KeyError(f"{arch_id} has no shape {shape_id!r} (have "
                        f"{', '.join(ARCH_SHAPES[arch_id])})")
     if mod.FAMILY == "lm":
-        return _lm_cell(arch_id, mod, shape_id, reduced)
+        return _lm_cell(arch_id, mod, shape_id, mesh, reduced)
     if mod.FAMILY == "gnn":
-        return _gnn_cell(arch_id, mod, shape_id, reduced)
-    return _recsys_cell(arch_id, mod, shape_id, reduced)
+        return _gnn_cell(arch_id, mod, shape_id, mesh, reduced)
+    return _recsys_cell(arch_id, mod, shape_id, mesh, reduced)
 
 
 def all_cells():

@@ -19,8 +19,16 @@ For each cell it reports, on one card:
   * the reference's analytic estimate of the device's bytes: the state
     plus a live window of 15% of the cell's analytic bytes;
   * ``roofline_terms`` at ``chips=1`` on H100 constants (no collective);
-  * whether the estimate fits one 80 GB card.  A cell that does not is
-    reported as needing several cards (ROADMAP A12.2b), not as a failure.
+  * whether the estimate fits one 80 GB card.
+
+and on each production mesh (``16x16``, ``pod2x16x16``), from the cell's
+partition specs there, the reference's per-device arithmetic
+(``repro.launch.dryrun``): each input leaf's bytes over the ranks its spec
+splits it across, plus the live window of the analytic bytes over the
+chips.  ``needs`` is the card count those bytes need: one card where the
+one-card estimate fits, else the smaller production mesh whose per-device
+estimate fits an 80 GB card.  A cell that needs several cards is not a
+failure.
 
 The exit code is 1 if any cell failed.  No card is needed.
 """
@@ -36,6 +44,8 @@ import torch
 
 from repro_torch.configs.registry import ALL_ARCHS, ARCH_SHAPES, build_cell
 from repro_torch.dist.roofline import roofline_terms
+from repro_torch.dist.sharding import is_spec, shard_count
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train.tree import flatten
 
 #: one H100's device memory (the 80 GB part)
@@ -46,6 +56,29 @@ LIVE_WINDOW = 0.15
 
 def _leaves(args) -> list:
     return [leaf for arg in args for leaf in flatten(arg)[0]]
+
+
+def per_device_bytes(cell, mesh) -> dict:
+    """The reference's per-device memory model of ``cell`` (built on
+    ``mesh``): state bytes (each input leaf's bytes, integer-divided by the
+    ranks its spec splits it across) and the live window of the analytic
+    bytes over the chips."""
+    state = 0
+    for tree, specs in zip(cell.abstract_args, cell.in_specs):
+        leaves = flatten(tree)[0]
+        spec_leaves = [specs] if is_spec(specs) else flatten(specs)[0]  # a spec is a leaf
+        if len(leaves) != len(spec_leaves):
+            raise ValueError(f"{cell.arch} {cell.shape}: {len(leaves)} inputs, "
+                             f"{len(spec_leaves)} specs")
+        for ab, spec in zip(leaves, spec_leaves):
+            state += ab.numel() * ab.element_size() // max(shard_count(spec, mesh), 1)
+    act = cell.meta.get("analytic_bytes", 0) / mesh.size * LIVE_WINDOW
+    return {"chips": mesh.size, "analytic_state_mb": state / 2**20,
+            "analytic_device_mb": (state + act) / 2**20,
+            "fits_80gb": state + act <= HBM_BYTES}
+
+
+PRODUCTION_MESHES = {"16x16": False, "pod2x16x16": True}
 
 
 def run_cell(arch: str, shape: str, reduced: bool = False, verbose: bool = True) -> dict:
@@ -64,6 +97,18 @@ def run_cell(arch: str, shape: str, reduced: bool = False, verbose: bool = True)
     live = cell.meta["analytic_bytes"] * LIVE_WINDOW
     fits = state + live <= HBM_BYTES
     rl = roofline_terms(cell.meta, 1, 0.0)
+    production = {
+        label: per_device_bytes(
+            build_cell(arch, shape, reduced=reduced,
+                       mesh=make_production_mesh(multi_pod=multi)),
+            make_production_mesh(multi_pod=multi))
+        for label, multi in PRODUCTION_MESHES.items()}
+    if fits:
+        needs = "1 card"
+    else:
+        fitting = [p for p in production.values() if p["fits_80gb"]]
+        needs = (f"{min(p['chips'] for p in fitting)} cards" if fitting
+                 else f"more than {max(p['chips'] for p in production.values())} cards")
     result = {
         "arch": arch,
         "shape": shape,
@@ -77,7 +122,8 @@ def run_cell(arch: str, shape: str, reduced: bool = False, verbose: bool = True)
             "analytic_device_mb": (state + live) / 2**20,
             "fits_one_card": fits,
         },
-        "needs": "1 card" if fits else "several cards (A12.2b)",
+        "production": production,
+        "needs": needs,
         "roofline": rl.row(),
         "meta": {k: cell.meta[k] for k in ("params_total", "params_active", "tokens",
                                            "scan_trips")},
@@ -85,6 +131,7 @@ def run_cell(arch: str, shape: str, reduced: bool = False, verbose: bool = True)
     if verbose:
         print(f"[OK] {arch:26s} {shape:14s} state={state / 1e9:9.3f} GB "
               f"device~{(state + live) / 1e9:9.3f} GB {result['needs']:22s} "
+              f"16x16 {production['16x16']['analytic_device_mb'] / 1024:8.2f} GiB/dev "
               f"dom={rl.dominant} c/m/x = {rl.compute_s:.3e}/{rl.memory_s:.3e}/"
               f"{rl.collective_s:.3e} s (meta run {step_s:.2f} s)", flush=True)
     return result

@@ -28,8 +28,17 @@ aggregates are formed into zeros and added to the running sums in the
 reference's order.  A chunk count that does not divide E raises
 ``ValueError`` (the reference fails an ``assert``; ROADMAP C14).
 
-The distributed step (``partitioned_train_step_fn``, ``build_partition``:
-halo exchange over a device mesh) waits with ROADMAP A12.2b.
+Partitioned message passing (``partitioned_train_step_fn``,
+``build_partition``): the reference's distributed-GNN layout, a per-rank
+program over a ``launch.mesh.RankMesh``.  The host partitioner gives each
+rank a block of nodes and the edges into them (padded to equal counts
+with edges into ``dst = nloc``, which ``_segment_sum`` drops) and an
+export list: its nodes that other ranks' edges read.  Before each layer
+every rank all-gathers its exported rows (the halo; layer 0 exchanges
+only ``s``, its ``v`` and ``t`` being zero), and edge sources index
+[local nodes | halo].  The energies' partial sums are summed over every
+rank; the replicated parameters' gradients, summed over the ranks, are the
+dense step's.
 """
 
 from __future__ import annotations
@@ -37,10 +46,12 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.common import resolve_device
+from repro_torch.dist.collectives import all_gather, psum
 from repro_torch.models.common import mlp, normal_init
 
 EPS = 1e-9
@@ -204,32 +215,32 @@ def _edge_messages(cfg: NequIPConfig, lp, s, v, t, src, dst, r, u, y2, n_nodes):
             _segment_sum(m_t, dst, n_nodes))
 
 
-def _message_layer(cfg: NequIPConfig, lp, s, v, t, edge_index, r, u, y2, n_nodes,
-                   n_edge_chunks: int = 1):
-    """One interaction block: the messages of all edges (in
-    ``n_edge_chunks`` chunks of E / n_edge_chunks, each chunk's aggregates
-    added to the running sums), then the self-interaction mixes, the
-    gates and the residuals."""
-    src, dst = edge_index[0], edge_index[1]
+def _aggregate(cfg: NequIPConfig, lp, s, v, t, src, dst, r, u, y2, n_nodes,
+               n_edge_chunks: int = 1):
+    """The messages of all edges summed into ``n_nodes`` receivers, in
+    ``n_edge_chunks`` chunks of E / n_edge_chunks (each chunk's sums added
+    to the running ones)."""
     E = src.shape[0]
     if n_edge_chunks <= 1:
-        agg_s, agg_v, agg_t = _edge_messages(cfg, lp, s, v, t, src, dst, r, u, y2, n_nodes)
-    else:
-        if E % n_edge_chunks:
-            raise ValueError(f"{cfg.name}: {E} edges do not split into {n_edge_chunks} "
-                             "equal chunks")
-        ce = E // n_edge_chunks
-        C = cfg.channels
-        agg_s = s.new_zeros((n_nodes, C))
-        agg_v = s.new_zeros((n_nodes, C, 3))
-        agg_t = s.new_zeros((n_nodes, C, 3, 3))
-        for lo in range(0, E, ce):
-            c = slice(lo, lo + ce)
-            d_s, d_v, d_t = _edge_messages(cfg, lp, s, v, t, src[c], dst[c], r[c], u[c],
-                                           y2[c], n_nodes)
-            agg_s, agg_v, agg_t = agg_s + d_s, agg_v + d_v, agg_t + d_t
+        return _edge_messages(cfg, lp, s, v, t, src, dst, r, u, y2, n_nodes)
+    if E % n_edge_chunks:
+        raise ValueError(f"{cfg.name}: {E} edges do not split into {n_edge_chunks} "
+                         "equal chunks")
+    ce = E // n_edge_chunks
+    C = cfg.channels
+    agg_s = s.new_zeros((n_nodes, C))
+    agg_v = s.new_zeros((n_nodes, C, 3))
+    agg_t = s.new_zeros((n_nodes, C, 3, 3))
+    for lo in range(0, E, ce):
+        c = slice(lo, lo + ce)
+        d_s, d_v, d_t = _edge_messages(cfg, lp, s, v, t, src[c], dst[c], r[c], u[c], y2[c],
+                                       n_nodes)
+        agg_s, agg_v, agg_t = agg_s + d_s, agg_v + d_v, agg_t + d_t
+    return agg_s, agg_v, agg_t
 
-    # --- self-interaction + gate -------------------------------------------
+
+def _update(lp, s, v, t, agg_s, agg_v, agg_t):
+    """The self-interaction mixes, the gates and the residuals."""
     s_new = s @ lp["mix_s_self"] + agg_s @ lp["mix_s_msg"]
     v_new = (torch.einsum("nci,cd->ndi", v, lp["mix_v_self"])
              + torch.einsum("nci,cd->ndi", agg_v, lp["mix_v_msg"]))
@@ -242,6 +253,17 @@ def _message_layer(cfg: NequIPConfig, lp, s, v, t, edge_index, r, u, y2, n_nodes
     v_out = v + v_new * gate_v[..., None]
     t_out = t + t_new * gate_t[..., None, None]
     return s_out, v_out, t_out
+
+
+def _message_layer(cfg: NequIPConfig, lp, s, v, t, edge_index, r, u, y2, n_nodes,
+                   n_edge_chunks: int = 1):
+    """One interaction block: the messages of all edges (in
+    ``n_edge_chunks`` chunks of E / n_edge_chunks, each chunk's aggregates
+    added to the running sums), then the self-interaction mixes, the
+    gates and the residuals."""
+    agg = _aggregate(cfg, lp, s, v, t, edge_index[0], edge_index[1], r, u, y2, n_nodes,
+                     n_edge_chunks)
+    return _update(lp, s, v, t, *agg)
 
 
 def _node_states(cfg: NequIPConfig, params, node_feat, edge_index, edge_vec,
@@ -279,3 +301,114 @@ def forward_train(cfg: NequIPConfig, params, batch, n_graphs: int, n_edge_chunks
                               batch["edge_vec"], batch["graph_id"], n_graphs,
                               n_edge_chunks=n_edge_chunks)
     return torch.mean((energies - batch["energy"]) ** 2)
+
+
+# ===========================================================================
+# Partitioned message passing (distributed-GNN halo exchange)
+# ===========================================================================
+
+
+def halo_bytes_per_layer(n_ranks: int, xmax: int, channels: int) -> int:
+    """Bytes the halo tables of one layer after the first hold, summed
+    over ranks: the reference's |halo| x C x 13 x 4 (s, v and t in f32),
+    |halo| = n_ranks x xmax gathered rows."""
+    return n_ranks * xmax * channels * 13 * 4
+
+
+def partitioned_train_step_fn(cfg: NequIPConfig, mesh, n_graphs: int, n_edge_chunks: int = 1):
+    """``loss_fn(params, batch)`` on one rank of ``mesh`` (a
+    ``launch.mesh.RankMesh``; every rank calls it together): the MSE
+    energy loss of the whole partitioned graph.  ``batch`` holds this
+    rank's blocks of ``build_partition``'s arrays (``dist.sharding
+    .local_shard`` with the spec ``P(all axes)``; ``energy`` whole):
+
+        node_feat  [N_loc, F]  its node block
+        edge_src   [E_loc]     local index, or N_loc + halo row
+        edge_dst   [E_loc]     local index (N_loc: padding, dropped)
+        edge_vec   [E_loc, 3]
+        export_idx [X]         local indices of the rows it exports
+        graph_id   [N_loc]     global graph ids
+        energy     [n_graphs]
+
+    Parameters are replicated; the loss is the same on every rank.  Each
+    rank's gradient is its part of the dense one (``psum``'s backward
+    passes the energies' cotangent to each rank's partial sums): their sum
+    over the ranks is the dense step's."""
+
+    def halo(x, export_idx):
+        return all_gather(x[export_idx], mesh, "all", 0)
+
+    def loss_fn(params, batch):
+        src, dst, export_idx = batch["edge_src"], batch["edge_dst"], batch["export_idx"]
+        N_loc = batch["node_feat"].shape[0]
+        C = cfg.channels
+        s = batch["node_feat"] @ params["embed_in"]
+        v = s.new_zeros((N_loc, C, 3))
+        t = s.new_zeros((N_loc, C, 3, 3))
+        r, u, y2 = edge_harmonics(batch["edge_vec"])
+        for li, lp in enumerate(params["layers"]):
+            ts = torch.cat([s, halo(s, export_idx)])
+            if li == 0:  # v and t are zero before the first block: no exchange
+                X = ts.shape[0] - N_loc
+                tv = torch.cat([v, s.new_zeros((X, C, 3))])
+                tt = torch.cat([t, s.new_zeros((X, C, 3, 3))])
+            else:
+                tv = torch.cat([v, halo(v, export_idx)])
+                tt = torch.cat([t, halo(t, export_idx)])
+            agg = _aggregate(cfg, lp, ts, tv, tt, src, dst, r, u, y2, N_loc, n_edge_chunks)
+            s, v, t = _update(lp, s, v, t, *agg)
+        node_e = mlp(s, [params["readout_w1"], params["readout_w2"]],
+                     [params["readout_b1"], params["readout_b2"]], act=F.silu)[..., 0]
+        e = psum(_segment_sum(node_e, batch["graph_id"], n_graphs), mesh, "all")
+        return torch.mean((e - batch["energy"]) ** 2)
+
+    return loss_fn
+
+
+def build_partition(node_feat, edge_index, edge_vec, graph_id, ndev: int) -> dict:
+    """The reference's host partitioner (``repro.models.nequip
+    .build_partition``) in numpy, array for array: nodes in ``ndev``
+    equal blocks; each block's edges (those into its nodes, in edge order)
+    padded to the largest count with edges 0 -> nloc of vector (1e-3, 0,
+    0); each block's export list (its nodes that other blocks' edges read,
+    sorted, padded with 0 to the longest); sources renumbered into [local |
+    halo], the halo being the export lists gathered in rank order.  Global
+    arrays whose ``P(all axes)`` blocks are each rank's, as
+    ``partitioned_train_step_fn`` takes them (``energy`` is the caller's)."""
+    N = node_feat.shape[0]
+    if N % ndev:
+        raise ValueError(f"{N} nodes do not split into {ndev} equal blocks")
+    nloc = N // ndev
+    src = np.asarray(edge_index[0]).astype(np.int64)
+    dst = np.asarray(edge_index[1]).astype(np.int64)
+    edge_vec = np.asarray(edge_vec, np.float32)
+    owner, src_owner = dst // nloc, src // nloc
+
+    per_dev = [np.flatnonzero(owner == d) for d in range(ndev)]
+    emax = max(1, max(len(x) for x in per_dev))
+    exports = [np.unique(src[(src_owner == d) & (owner != d)]) - d * nloc
+               for d in range(ndev)]
+    xmax = max(1, max(len(x) for x in exports))
+    export_idx = np.zeros((ndev, xmax), np.int32)
+    halo_pos = np.zeros(N, np.int64)
+    for d, ex in enumerate(exports):
+        export_idx[d, :len(ex)] = ex
+        halo_pos[d * nloc + ex] = d * xmax + np.arange(len(ex))
+
+    e_src = np.zeros((ndev, emax), np.int32)
+    e_dst = np.full((ndev, emax), nloc, np.int32)
+    e_vec = np.zeros((ndev, emax, 3), np.float32)
+    e_vec[:, :, 0] = 1e-3
+    for d, idx in enumerate(per_dev):
+        sg = src[idx]
+        e_src[d, :len(idx)] = np.where(src_owner[idx] == d, sg - d * nloc, nloc + halo_pos[sg])
+        e_dst[d, :len(idx)] = dst[idx] - d * nloc
+        e_vec[d, :len(idx)] = edge_vec[idx]
+    return {
+        "node_feat": np.asarray(node_feat, np.float32),
+        "edge_src": e_src.reshape(-1),
+        "edge_dst": e_dst.reshape(-1),
+        "edge_vec": e_vec.reshape(-1, 3),
+        "export_idx": export_idx.reshape(-1),
+        "graph_id": np.asarray(graph_id, np.int32),
+    }

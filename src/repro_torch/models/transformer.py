@@ -38,8 +38,25 @@ stably sorted by expert, each expert's first ``capacity`` tokens in an
 shared expert and the Switch auxiliary loss; a one-token-per-sequence call
 (decode) computes every expert and drops nothing.
 
-Not ported: expert parallelism (``ep_mesh``, the reference's
-``_moe_ffn_ep``) raises ``NotImplementedError`` naming ROADMAP A12.2b.
+Expert parallelism (``_moe_ffn_ep``, chosen where ``cfg.ep_mesh`` is set):
+a per-rank program over ``torch.distributed``, the reference's
+``shard_map`` body run on each rank of a ``launch.mesh.RankMesh``.  The
+rank holds its data shard of the tokens (replicated over ``model``) and
+its ``E / ep`` experts of each layer (with ``ep_fsdp`` also cut over the
+data axes on F, gathered before use).  It routes its tokens locally, the
+capacity from its own token count; exchanges the [E, cap, D] buffer over
+the ``model`` group ([E, cap, D] -> [E/ep, ep * cap, D]); runs its experts
+in checkpointed chunks of about 2,048 slots; exchanges back, combines, and
+returns the Switch auxiliary loss averaged over every rank.  The
+exchanges are differentiable (``dist.collectives``), so one backward on
+every rank gives each its gradients; ``dist.step`` reduces them to the
+gradient of the reference's loss, the mean over data shards of each
+shard's loss (its auxiliary loss the shard's own routing's).  The
+reference's other uses of its mesh are GSPMD layout hints that leave
+values unchanged: ``_seq_shard_constraint`` (the residual stream
+sequence-sharded over ``model``) and the context-parallel constraints on
+k, v and q in ``_gqa_attention``.  A per-rank program has no global
+layout to hint at, so they have no counterpart here.
 """
 
 from __future__ import annotations
@@ -52,6 +69,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import resolve_device
+from repro_torch.dist.collectives import all_gather, all_reduce_mean, all_to_all
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, rms_norm, swiglu
 
@@ -126,9 +144,6 @@ class LMConfig:
 
 
 def _require_ported(cfg: LMConfig) -> None:
-    if cfg.ep_mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: expert parallelism (ep_mesh) is not ported (ROADMAP A12.2b)")
     if cfg.attention_impl not in ("xla", "flash"):
         raise ValueError(f"attention_impl must be 'xla' or 'flash', got {cfg.attention_impl!r}")
 
@@ -378,14 +393,74 @@ def _moe_ffn(cfg: LMConfig, p, x, capacity_factor: float | None = None):
     return y, aux
 
 
+#: expert slots of one checkpointed chunk of ``_moe_ffn_ep``'s expert FFN
+EP_CHUNK = 2048
+
+
+def _expert_ffn(xc, wg, wu, wd):
+    """SwiGLU experts: xc [e, c, D] through wg/wu [e, D, F], wd [e, F, D]."""
+    return torch.bmm(F.silu(torch.bmm(xc, wg)) * torch.bmm(xc, wu), wd)
+
+
+def _moe_ffn_ep(cfg: LMConfig, p, x, capacity_factor: float | None = None):
+    """Expert-parallel MoE on this rank (the reference's ``_moe_ffn_ep``,
+    line 364): x [B_loc, S, D] is the rank's data shard, ``p``'s expert
+    weights its ``E / ep`` experts (F cut over the data axes with
+    ``ep_fsdp``), the router and the shared expert whole.  Returns (y
+    [B_loc, S, D], the auxiliary loss averaged over every rank)."""
+    mesh = cfg.ep_mesh
+    E = cfg.moe.n_experts
+    ep = mesh.group_size("model")
+    if E % ep:
+        raise ValueError(f"{cfg.name}: {E} experts do not split over {ep} model ranks")
+    Bl, S, D = x.shape
+    T = Bl * S
+    cap = moe_capacity(cfg, T, capacity_factor or cfg.moe.capacity_factor)
+    wg, wu, wd = p["we_gate"], p["we_up"], p["we_down"]
+    if cfg.ep_fsdp and mesh.group_size("data") > 1:
+        wg, wu = all_gather(wg, mesh, "data", 2), all_gather(wu, mesh, "data", 2)
+        wd = all_gather(wd, mesh, "data", 1)
+
+    xf = x.reshape(T, D)
+    r = _route(cfg, p["router"], xf, cap)
+    xe = xf.new_zeros(E * cap + 1, D).index_put((r.dest,), xf[r.perm])[:E * cap]
+    # [E, cap, D] -> [ep (source), E/ep, cap, D] -> [E/ep, ep * cap, D]
+    xr = all_to_all(xe.view(E, cap, D), mesh, "model")
+    xr = xr.view(ep, E // ep, cap, D).transpose(0, 1).reshape(E // ep, ep * cap, D)
+    cp = ep * cap
+    nch = max(1, cp // EP_CHUNK)
+    while cp % nch:
+        nch -= 1
+    cc = cp // nch
+    ye = torch.cat([checkpoint(_expert_ffn, xr[:, lo:lo + cc], wg, wu, wd, use_reentrant=False)
+                    for lo in range(0, cp, cc)], dim=1)
+    ye = ye.view(E // ep, ep, cap, D).transpose(0, 1)
+    ye = all_to_all(ye, mesh, "model").view(E * cap, D)
+
+    rows = ye[torch.where(r.keep, r.dest, 0)]
+    y = xf.new_zeros(T, D).index_put((r.perm,), torch.where(r.keep[:, None], rows, 0))
+    y = (y * r.top_w[:, None].to(x.dtype)).reshape(Bl, S, D)
+    fe = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, r.top, torch.ones(T, dtype=torch.float32, device=x.device)) / T
+    aux = all_reduce_mean(E * torch.sum(fe * r.gate.mean(dim=0)), mesh, "all")
+    if cfg.moe.shared_expert:
+        y = y + swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
+    return y, aux
+
+
 def _sublayer_train(cfg: LMConfig, pos: int, p, x, positions):
     """One decoder layer over the full sequence (training, prefill): the
     new residual stream, the FFN's auxiliary loss and the layer's (k, v).
-    Local layers attend within their chunks; MoE models route the FFN."""
+    Local layers attend within their chunks; MoE models route the FFN,
+    expert-parallel where ``cfg.ep_mesh`` is set."""
     q, k, v = _qkv(cfg, pos, p, x, positions)
     attend = _chunked_local_attention if pos in cfg.local_positions else _gqa_attention
     x = x + _attn_out(attend(cfg, q, k, v), p["wo"])
-    y, aux = (_moe_ffn if cfg.moe else _dense_ffn)(cfg, p, rms_norm(x, p["ffn_norm"]))
+    if cfg.moe:
+        ffn = _moe_ffn_ep if cfg.ep_mesh is not None else _moe_ffn
+    else:
+        ffn = _dense_ffn
+    y, aux = ffn(cfg, p, rms_norm(x, p["ffn_norm"]))
     return x + y, aux, (k, v)
 
 

@@ -55,13 +55,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state) -> tuple[dict, dict]:
+def adamw_update(cfg: AdamWConfig, params, grads, state, norm=None) -> tuple[dict, dict]:
     """One AdamW step: (new params, new state).  With ``grad_clip``, the
     gradients are scaled by min(1, clip / max(norm, 1e-9)), the scale kept
-    in f32 and cast to each gradient's dtype."""
+    in f32 and cast to each gradient's dtype.  ``norm`` is the gradients'
+    global norm where ``grads`` is one rank's shards of a larger tree
+    (default: ``global_norm(grads)``)."""
     step = state["step"] + 1
     if cfg.grad_clip is not None:
-        gn = global_norm(grads)
+        gn = global_norm(grads) if norm is None else norm
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
         grads = map_leaves(lambda g: g * scale.to(g.dtype), grads)
 

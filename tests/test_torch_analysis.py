@@ -44,6 +44,17 @@ from repro_torch.kernels.pdl_gather import pdl_gather_plain
 from repro_torch.kernels.rmq import rmq
 from repro_torch.serve.retrieval import RetrievalService
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"

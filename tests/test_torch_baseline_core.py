@@ -34,6 +34,17 @@ from repro_torch.kernels.wt_list import pop_bound, stack_size, wt_list_plain
 from repro_torch.succinct.rmq import rmq_build
 from test_torch_kernel_core import compile_core
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHIM = r"""
 #include <vector>
 #include "retrieval_core.cuh"

@@ -37,6 +37,17 @@ from repro_torch.core.suffix import Collection, build_suffix_data
 from repro_torch.succinct import rmq as trmq
 from repro_torch.succinct.wavelet import WaveletMatrix
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPECS = {
     "version": jcoll.SyntheticSpec("version", n_base=3, n_variants=7, base_len=90,
                                    mutation_rate=0.01, seed=5),

@@ -28,6 +28,17 @@ from repro_torch.core.suffix import Collection
 from repro_torch.serve import planner as tplanner
 from repro_torch.serve import retrieval as tret
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MAX_BUF = 512
 ULP_TOL = 2
 SPEC = SyntheticSpec("version", n_base=2, n_variants=5, base_len=80,

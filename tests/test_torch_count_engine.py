@@ -20,6 +20,7 @@ n_variants 6, base_len 80, seed 3).
 
 import numpy as np
 import pytest
+import torch
 
 from repro.data.collections import SyntheticSpec, generate, random_substring_patterns
 from repro.serve.retrieval import RetrievalService as JService
@@ -27,6 +28,17 @@ from repro.serve.sharded import ShardedRetrievalService as JSharded
 from repro_torch.core.suffix import Collection
 from repro_torch.dist.sharding import make_docs_mesh
 from repro_torch.serve.retrieval import RetrievalService as TService
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 
@@ -16,6 +17,17 @@ from repro.errors import InvalidQueryError as JInvalid
 from repro_torch.core import suffix as tsuffix
 from repro_torch.data import collections as tcoll
 from repro_torch.errors import InvalidQueryError as TInvalid
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SPECS = {
     "version": dict(family="version", n_base=3, n_variants=7, base_len=90,

@@ -28,6 +28,17 @@ from repro_torch.configs import smollm_135m
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import transformer as ttf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, S = 2, 8
 F32_TOL = 1e-5
 

@@ -27,6 +27,17 @@ import torch
 from repro.kernels import ref
 from repro_torch.kernels.embedding_bag import embedding_bag_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
 SHIM = r"""

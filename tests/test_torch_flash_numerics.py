@@ -32,6 +32,17 @@ from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain, flash_route,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16_ULPS = 2       # chip_smoke.py's bf16 tolerance for the kernel
 KEYS = 128          # keys per tile in the kernel
 LOG2E = 1.4426950408889634

@@ -28,6 +28,17 @@ from repro_torch.kernels.rank import rank_plain
 from repro_torch.kernels.rmq import rmq_plain
 from test_torch_primitives import rank_case, rmq_case
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
 SHIM = r"""

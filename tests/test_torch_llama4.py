@@ -58,6 +58,17 @@ from repro_torch.models.common import apply_rope, rms_norm
 from repro_torch.train.loop import value_and_grad
 from repro_torch.train.tree import flatten
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LLAMA4 = {"llama4-scout-17b-a16e": (jax_scout, llama4_scout_17b_a16e),
           "llama4-maverick-400b-a17b": (jax_maverick, llama4_maverick_400b_a17b)}
 ARCHS = {**LLAMA4, "mistral-large-123b": (jax_mistral, mistral_large_123b)}
@@ -399,10 +410,26 @@ def test_registry_returns_the_new_configs():
                     assert g == w, (arch, make, f.name)
 
 
-def test_expert_parallelism_names_its_item():
+def test_expert_parallelism_names_its_item(monkeypatch):
+    """Expert parallelism is ported (ROADMAP A12.2b): with ``ep_mesh`` set
+    every MoE layer of ``forward_train`` goes through ``_moe_ffn_ep``
+    (``tests/test_torch_ep.py`` runs it over ranks; here a stand-in that
+    records the call and dispatches locally)."""
     cfg = dataclasses.replace(llama4_scout_17b_a16e.reduced_config(), ep_mesh=object())
-    with pytest.raises(NotImplementedError, match="A12.2b"):
-        ttf.init_params(cfg, torch.Generator(), device="cpu")
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    calls = []
+
+    def ep_ffn(c, p, x, capacity_factor=None):
+        calls.append(x.shape)
+        return ttf._moe_ffn(c, p, x, capacity_factor)
+
+    monkeypatch.setattr(ttf, "_moe_ffn_ep", ep_ffn)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator().manual_seed(1))
+    local = dataclasses.replace(cfg, ep_mesh=None)
+    with torch.no_grad():
+        got = ttf.forward_train(cfg, params, tokens, tokens)
+        want = ttf.forward_train(local, params, tokens, tokens)
+    assert len(calls) == cfg.n_layers and torch.equal(got, want)
 
 
 def test_training_cli_trains_scout_on_the_cpu(tmp_path):

@@ -27,6 +27,17 @@ from repro_torch.kernels.embedding_bag import (
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
 BAG_TOL = {"f32": 1e-6, "bf16": 3e-2}

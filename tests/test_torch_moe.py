@@ -35,6 +35,17 @@ from repro.models import transformer as jtf
 from repro_torch.configs import llama4_maverick_400b_a17b, llama4_scout_17b_a16e
 from repro_torch.models import transformer as ttf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = {"llama4-scout-17b-a16e": (jax_scout, llama4_scout_17b_a16e),
          "llama4-maverick-400b-a17b": (jax_maverick, llama4_maverick_400b_a17b)}
 F32_TOL = 1e-5

@@ -39,6 +39,17 @@ from repro_torch.kernels.pdl_gather import iter_cap, pdl_gather_plain, stack_siz
 from test_torch_kernel_core import compile_core
 from test_torch_pdl_gather import BETA, BLOCK, SHIM, SPECS, _Operands, _p
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BLOCK_SHIM = SHIM + r"""
 extern "C" void core_pdl_gather_block(const void* const* p, const int* v,
                                       const int32_t* lo, const int32_t* hi,

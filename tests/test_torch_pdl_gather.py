@@ -32,6 +32,17 @@ from repro_torch.core.suffix import Collection, build_suffix_data
 from repro_torch.kernels.pdl_gather import kernel_operands, pdl_gather, pdl_gather_plain
 from test_torch_kernel_core import compile_core
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHIM = r"""
 #include <vector>
 #include "retrieval_core.cuh"

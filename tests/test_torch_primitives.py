@@ -29,6 +29,17 @@ from repro_torch.kernels import rmq as trmq
 from repro_torch.succinct import wavelet as twm
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

@@ -50,6 +50,17 @@ from repro_torch.data.pipelines import recsys_batches
 from repro_torch.models import recsys as T
 from repro_torch.train.tree import flatten, treedef_str
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = {"fm": (jax_fm, fm), "sasrec": (jax_sasrec, sasrec), "autoint": (jax_autoint, autoint),
          "dlrm-mlperf": (jax_dlrm, dlrm_mlperf)}
 INIT = {"fm": "fm_init", "sasrec": "sasrec_init", "autoint": "autoint_init",

@@ -51,6 +51,17 @@ from repro_torch.train import loop as tloop
 from repro_torch.train import optimizer as topt
 from repro_torch.train.tree import flatten, map_leaves, treedef_str
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOSS_RTOL = GRAD_RTOL = 1e-5
 CLIPPED_RTOL = 1e-6
 LOSS = {"fm": "fm_train_loss", "sasrec": "sasrec_train_loss",

@@ -31,9 +31,21 @@ from repro_torch.configs import registry as treg
 from repro_torch.data.pipelines import lm_batches, random_graph, recsys_batches
 from repro_torch.dist import roofline
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import nequip, recsys, transformer
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.tree import flatten
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -137,7 +149,9 @@ def test_dryrun_full_cell(arch, shape, fits):
     live = cell.meta["analytic_bytes"] * dryrun.LIVE_WINDOW
     assert r["memory"]["analytic_device_mb"] == (state + live) / 2**20
     assert r["memory"]["fits_one_card"] is fits
-    assert r["needs"] == ("1 card" if fits else "several cards (A12.2b)")
+    assert r["needs"] == ("1 card" if fits else "256 cards")
+    assert r["production"]["16x16"] == dryrun.per_device_bytes(
+        treg.build_cell(arch, shape, mesh=make_production_mesh()), make_production_mesh())
     assert r["roofline"] == roofline.roofline_terms(cell.meta, 1, 0.0).row()
 
 
@@ -147,8 +161,8 @@ def test_dryrun_reports_a_failing_cell(monkeypatch, capsys):
 
     real = treg.build_cell
 
-    def build(arch, shape, reduced=False):
-        cell = real(arch, shape, reduced=reduced)
+    def build(arch, shape, reduced=False, mesh=None):
+        cell = real(arch, shape, reduced=reduced, mesh=mesh)
         cell.step_fn = sync
         return cell
 

@@ -34,6 +34,17 @@ from repro_torch.serve import retrieval as tret
 from repro_torch.serve import runtime as truntime
 from repro_torch.serve.retrieval import RetrievalService as TService
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GENEROUS = 300.0  # deadline that a CPU test runner cannot miss
 ULP_TOL = 2
 

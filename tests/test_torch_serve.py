@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 
@@ -20,6 +21,17 @@ from repro_torch import convert
 from repro_torch.core.suffix import Collection
 from repro_torch.serve import retrieval as tret
 from repro_torch.serve.planner import ENGINE_BRUTE, ENGINE_ILCP, ENGINE_PDL
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 MAX_BUF = 512
 

@@ -46,6 +46,17 @@ from repro_torch.serve.retrieval import RetrievalService as TService
 from repro_torch.serve.runtime import RuntimeConfig, ServeRuntime
 from repro_torch.serve.sharded import ShardedRetrievalService
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_SHARDS = 4
 MAX_BUF = 256  # above every pattern's occ (91 at most): no buffer truncates
 ULP_TOL = 2

@@ -37,6 +37,17 @@ from repro_torch.kernels import pdl_gather as kpdl
 from repro_torch.serve.retrieval import RetrievalService as TService
 from repro_torch.succinct import wavelet as twavelet
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ULP_TOL = 2
 MAX_BUF = 512
 

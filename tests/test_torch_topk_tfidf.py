@@ -36,6 +36,17 @@ from repro_torch.core import tfidf as ttfidf
 from repro_torch.core.suffix import Collection, build_suffix_data
 from repro_torch.serve import retrieval as tret
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MAX_BUF = 512
 ULP_TOL = 2
 

@@ -48,6 +48,17 @@ from repro_torch.train import loop as tloop
 from repro_torch.train import optimizer as topt
 from repro_torch.train.tree import flatten, map_leaves, treedef_str, unflatten
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 LOOP_RTOL = 1e-5
 PARITY_BOUND = 0.25

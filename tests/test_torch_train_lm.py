@@ -37,6 +37,17 @@ from repro_torch.models import transformer as ttf
 from repro_torch.train.loop import value_and_grad
 from repro_torch.train.tree import flatten
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 IMPLS = ("xla", "flash")
 B, S = 2, 128
 LOSS_RTOL = 1e-5

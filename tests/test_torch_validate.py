@@ -30,6 +30,17 @@ from repro_torch.serve import validate as tval
 from repro_torch.serve.retrieval import RetrievalService as TService
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def svcs():
     coll = generate(SyntheticSpec("version", n_base=2, n_variants=6,
