@@ -312,6 +312,33 @@ Phases (any failure exits non-zero; nothing is caught):
    finite losses, step seconds, and the halo bytes a layer beside the
    reference's |halo| x C x 13 x 4, the forward's collective bytes
    checked against it exactly.  Every rank failure fails the run.
+15. The registry's layout as per-rank programs (after phase 14, within
+   150 s; ``dist.tp``, ``models.recsys.RowBlock``), ranks on ``cuda:0``
+   over gloo.  (a) llama3.2-3b at full width, bf16, flash attention, cut
+   to 4 of its 28 layers, in the ``train_4k`` cell's ``in_specs`` on a
+   (data 2, model 2) mesh (FSDP on, as the registry's rule decides it for
+   the full config): each rank draws its blocks of the seeded weights,
+   takes 2 ZeRO-1 steps of 1 x 2,048 tokens a data shard (the second with
+   its collectives timed: host staging under gloo); every rank's blocks of
+   the cell's shapes, exactly 2 Hopper flash launches a layer a rank a
+   step, the same loss on every rank, the bytes each rank sent equal to
+   ``dist.roofline.tp_train_bytes``; then the same layers in f32 (TF32
+   off) at 1 x 256 a shard, the loss and every gradient block within 1e-5
+   of the largest magnitude of the one-rank ``forward_train`` and gradient
+   on the same card.  (b) The same config at its full 28 layers in the
+   ``prefill_32k`` cell's layout on (data 1, model 2): a 1 x 4,096 prefill
+   (28 Hopper flash launches a rank) and 8 greedy decode steps (none; the
+   argmax over the gathered vocab, the same token on both ranks), then an
+   f32 prefill and decode step at 4 layers whose logits and cache blocks
+   lie within 1e-4 of the one-rank ones.  (c) FM, SASRec, AutoInt and
+   DLRM-MLPerf at their published widths, the serving copy (bf16 tables),
+   on (data 1, model 2) through the registry's ``serve_p99`` (512) and
+   ``serve_bulk`` (262,144) cells: the one-rank scores first (DLRM's
+   48 GB table whole), freed before the ranks start; each rank draws its
+   rows of every big table alone (DLRM: 24 GB a rank, seeded by chunks of
+   2^20 rows); scores bit for bit the one-rank ones, one embedding-bag
+   launch a lookup a rank.  Prints step seconds, the host-staging share,
+   the bytes each rank sent beside the formula and peak memory a rank.
 
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -353,7 +380,12 @@ gradient, card against CPU, within 1e-5 of each leaf's max |value|; the
 partitioned NequIP loss within phase 13's loss bound of the dense one's
 (both f32 sums of 169,984 node energies in different orders; the dense
 loss in f64 is printed beside them) and its summed gradient within 1e-4
-of each leaf's max |value|.
+of each leaf's max |value|.  The registry's layout (phase 15): the f32
+tensor-parallel, FSDP and ZeRO-1 loss and gradient within 1e-5 of each
+leaf's max |value| of the one-rank step's (the products' and the sums over
+ranks' order, as ``tests/test_torch_tp.py`` holds them to the reference);
+the f32 prefill and decode within 1e-4 (phase 5's gate); row-sharded
+recsys scores bit for bit (one row and zeros summed in f32).
 """
 
 from __future__ import annotations
@@ -5184,6 +5216,21 @@ def _peak_gib(dev, reset=False) -> float:
     return torch.cuda.max_memory_allocated(dev) / 2**30
 
 
+def _with_segments(fn):
+    """``fn()`` with the ranks' allocator growing segments in place: ranks
+    that share one card keep the caching allocator from fragmenting it (the
+    ranks' setting alone)."""
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        return fn()
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
 def ep_seeded_params(cfg, dev, seed, experts):
     """Llama 4 parameters whose every leaf, and every expert of an expert
     leaf, is drawn N(0, 0.02^2) from a seed of its own (norms are ones), so
@@ -5397,18 +5444,9 @@ def phase_multirank(dev, fa, ep_cfg=None, steps=EP_STEPS, batch=EP_BATCH, nq_inf
                                                               capacity_factor=float(E)))
     per_step = 2 * cfg.n_layers if torch.device(dev).type == "cuda" else 0
     t0 = time.perf_counter()
-    # two ranks of 33 GiB peaks share the card: segments that grow in place
-    # keep the caching allocator from fragmenting it (the ranks' setting only)
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        ranks = spawn_ranks(ep_rank_train, EP_MESH, "gloo", dev, args=(cfg, 0, batch, steps),
-                            axes=PHASE14_AXES)
-    finally:
-        if alloc is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    # two ranks of 33 GiB peaks share the card
+    ranks = _with_segments(lambda: spawn_ranks(ep_rank_train, EP_MESH, "gloo", dev,
+                                               args=(cfg, 0, batch, steps), axes=PHASE14_AXES))
     a_s = time.perf_counter() - t0
     n_ranks = len(ranks)
     for r in ranks:
@@ -5595,6 +5633,520 @@ def phase_multirank(dev, fa, ep_cfg=None, steps=EP_STEPS, batch=EP_BATCH, nq_inf
     return {"flash_attention": launches}, runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the registry's layout run as per-rank programs on one card
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "llama3.2-3b"
+TP_TRAIN_MESH = (2, 2)        # (a): data 2, model 2: 4 ranks on cuda:0 over gloo
+TP_TRAIN_LAYERS = 4           # (a): of 28 (the phase's budget, with the f32 check's)
+TP_TRAIN_BATCH = (1, 2048)    # (a): a data shard's rows and tokens a step
+TP_TRAIN_STEPS = 2            # (a): the second with its collectives timed
+TP_F32_BATCH = (1, 256)       # (a): the f32 gradient check's data shard
+TP_F32_TOL = 1e-5             # (a): loss and each gradient leaf, of the one-rank max |value|
+TP_SERVE_MESH = (1, 2)        # (b), (c): data 1, model 2
+TP_PREFILL = (1, 4096)        # (b): prompt rows and tokens
+TP_DECODE_STEPS = 8           # (b): greedy decode steps after the prefill
+TP_SERVE_F32 = (4, 1024)      # (b): the f32 check's layers and prompt tokens
+TP_SERVE_TOL = 1e-4           # (b): logits and cache, of the one-rank max |value|
+TP_TABLE_CHUNK = 1 << 20      # (c): rows a seeded chunk of a big table
+TP_RECSYS_REPS = {"serve_p99": 5, "serve_bulk": 0}   # (c): timed calls after the checked one
+
+
+def _tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _max_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+def tp_rank_train(mesh, cfg, seed, batch, steps, f32_batch):
+    """(a) on one rank: the registry's ``train_4k`` cell of the full config
+    built on this rank mesh (its ``in_specs``: FSDP on), the rank's blocks of
+    ``cfg``'s seeded weights (``cfg``: the config cut in depth, the cell's
+    specs leaf for leaf) and zero moments, ``steps`` ZeRO-1 steps, then the
+    f32 loss and gradient against the one-rank ``forward_train`` on this
+    card (TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import build_cell
+    from repro_torch.dist.roofline import tp_train_bytes
+    from repro_torch.dist.sharding import P, local_shard, spec_axes
+    from repro_torch.dist.step import shard_tree, tp_train_step, tp_value_and_grad
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.transformer import forward_train, init_params
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import AdamWConfig, opt_state_shapes
+    from repro_torch.train.tree import flatten, map_leaves
+
+    dev = mesh.device
+    cell = build_cell(TP_ARCH, "train_4k", mesh=mesh)
+    pspecs, ospecs = cell.in_specs[0], cell.in_specs[1]
+    coords = dict(zip(mesh.axis_names, mesh.coords))
+    dp = mesh.group_size("data")
+    t0 = time.perf_counter()
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    params = shard_tree(full, pspecs, mesh)
+    del full
+    abstract = init_params(cfg, None, "meta")
+    want_shapes = [tuple(local_shard(t, s, mesh.shape, coords).shape)
+                   for t, s in zip(flatten(abstract)[0], flatten(pspecs)[0])]
+    opt_cfg = AdamWConfig()
+    opt = map_leaves(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+                     shard_tree(opt_state_shapes(abstract, opt_cfg), ospecs, mesh))
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    tokens = torch.randint(0, cfg.vocab, (batch[0] * dp, batch[1]), generator=gen, device=dev)
+    tok = local_shard(tokens, P(mesh.dp_axes, None), mesh.shape, coords)
+    step = tp_train_step(cfg, opt_cfg, mesh, pspecs, ospecs["m"])
+    _sync(dev)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "init_s": time.perf_counter() - t0,
+           "fsdp": sorted({str(spec_axes(s)) for s in flatten(pspecs)[0]
+                           if set(spec_axes(s)) & set(mesh.dp_axes)}),
+           "param_bytes": sum(t.numel() * t.element_size() for t in flatten(params)[0]),
+           "moment_bytes": sum(t.numel() * t.element_size() for t in flatten(opt)[0]),
+           "tokens": tok.numel(), "steps": [],
+           "formula_bytes": tp_train_bytes(cfg, mesh, pspecs, ospecs["m"], tuple(tok.shape))}
+    fa.launches = fa.hopper_launches = 0  # the layout's training path starts here
+    for s in range(steps):
+        mesh.timed = s > 0
+        mesh.reset_traffic()
+        _peak_gib(dev, reset=True)
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, {"tokens": tok, "labels": tok})
+        loss = float(loss)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        out["steps"].append({
+            "loss": loss, "s": dt, "peak_gib": _peak_gib(dev),
+            "bytes_sent": mesh.traffic["bytes"], "collectives": mesh.traffic["calls"],
+            "staging_s": mesh.traffic["seconds"] if mesh.timed else None,
+            "shapes_ok": [tuple(x.shape) for x in flatten(params)[0]] == want_shapes,
+            "finite": bool(torch.stack([torch.isfinite(x.float()).all()
+                                        for x in flatten(params)[0]]).all())})
+    out["launches"], out["hopper_launches"] = fa.launches, fa.hopper_launches
+    mesh.timed = False
+    del params, opt
+    # the f32 check: the same layers, TF32 off, against the one-rank step
+    t_f32 = time.perf_counter()
+    _tf32_off()
+    c32 = dataclasses.replace(cfg, param_dtype=torch.float32, act_dtype=torch.float32)
+    full = init_params(c32, torch.Generator(device=dev).manual_seed(seed + 1), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    tokens = torch.randint(0, cfg.vocab, (f32_batch[0] * dp, f32_batch[1]), generator=gen,
+                           device=dev)
+    tok = local_shard(tokens, P(mesh.dp_axes, None), mesh.shape, coords)
+    loss, grads = tp_value_and_grad(c32, mesh, pspecs, ospecs["m"], shard_tree(full, pspecs, mesh),
+                                    {"tokens": tok, "labels": tok})
+    one_loss, one = value_and_grad(lambda p, b: forward_train(c32, p, b, b), full, tokens)
+    del full
+    errs = [_max_rel(g, local_shard(w, s, mesh.shape, coords))
+            for g, w, s in zip(flatten(grads)[0], flatten(one)[0], flatten(ospecs["m"])[0])]
+    out["f32"] = {"loss": float(loss), "one_rank_loss": float(one_loss),
+                  "loss_rel": abs(float(loss) - float(one_loss)) / abs(float(one_loss)),
+                  "worst_leaf_rel": max(errs), "s": time.perf_counter() - t_f32}
+    return out
+
+
+def tp_rank_serve(mesh, cfg, seed, prompt, decode_steps, f32):
+    """(b) on one rank: the registry's ``prefill_32k`` cell of the full
+    config on this rank mesh (its ``in_specs``), a prefill of ``prompt`` and
+    ``decode_steps`` greedy decode steps (the argmax over the gathered
+    vocab), then an f32 prefill and decode step at ``f32`` = (layers,
+    tokens) against the one-rank ones on this card."""
+    import dataclasses
+
+    from repro_torch.configs.registry import build_cell
+    from repro_torch.dist.collectives import gather_
+    from repro_torch.dist.sharding import P, lm_cache_specs, axes_for_mesh, local_shard
+    from repro_torch.dist.step import shard_tree
+    from repro_torch.dist.tp import Layout
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.transformer import forward_decode, forward_prefill, init_params
+    from repro_torch.train.tree import flatten
+
+    dev = mesh.device
+    cell = build_cell(TP_ARCH, "prefill_32k", mesh=mesh)
+    pspecs = cell.in_specs[0]
+    coords = dict(zip(mesh.axis_names, mesh.coords))
+    dp = mesh.group_size("data")
+    t0 = time.perf_counter()
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    params = shard_tree(full, pspecs, mesh)
+    del full
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    tokens = torch.randint(0, cfg.vocab, (prompt[0] * dp, prompt[1]), generator=gen, device=dev)
+    tok = local_shard(tokens, cell.in_specs[1], mesh.shape, coords)
+    S = tok.shape[1]
+    _sync(dev)
+    out = {"rank": mesh.rank, "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size() for t in flatten(params)[0])}
+    with torch.no_grad():
+        fa.launches = fa.hopper_launches = 0  # the layout's prefill starts here
+        mesh.reset_traffic()
+        _peak_gib(dev, reset=True)
+        t0 = time.perf_counter()
+        lay = Layout(cfg, mesh, pspecs, params)
+        logits, cache = forward_prefill(cfg, params, tok, max_seq=S + decode_steps, layout=lay)
+        _sync(dev)
+        out.update(prefill_s=time.perf_counter() - t0, prefill_bytes=mesh.traffic["bytes"],
+                   prefill_launches=fa.launches, prefill_hopper=fa.hopper_launches,
+                   logits_shape=tuple(logits.shape),
+                   cache_bytes=sum(c.numel() * c.element_size() for c in flatten(cache)[0]))
+        fa.launches = fa.hopper_launches = 0  # decode: none expected
+        seconds, picked = [], []
+        nxt = gather_(logits, mesh, "model", 1).argmax(-1)
+        for k in range(decode_steps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = forward_decode(cfg, params, nxt, cache, S + k, layout=lay)
+            nxt = gather_(logits, mesh, "model", 1).argmax(-1)
+            picked.append(nxt.tolist())
+            seconds.append(time.perf_counter() - t0)
+        out.update(decode_s=seconds, decode_launches=fa.launches, picked=picked,
+                   peak_gib=_peak_gib(dev), finite=bool(torch.isfinite(logits.float()).all()))
+    del params, cache
+    # the f32 check at f32[0] layers, TF32 off
+    t_f32 = time.perf_counter()
+    _tf32_off()
+    c32 = dataclasses.replace(cfg, n_layers=f32[0], param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    full = init_params(c32, torch.Generator(device=dev).manual_seed(seed + 2), dev)
+    toks = tokens[:, :f32[1]].contiguous()
+    tok = local_shard(toks, cell.in_specs[1], mesh.shape, coords)
+    with torch.no_grad():
+        blocks = shard_tree(full, pspecs, mesh)
+        lay = Layout(c32, mesh, pspecs, blocks)
+        lg, cache = forward_prefill(c32, blocks, tok, max_seq=f32[1] + 1, layout=lay)
+        d_lg, cache = forward_decode(c32, blocks, tok[:, 0], cache, f32[1], layout=lay)
+        one_lg, one_cache = forward_prefill(c32, full, toks, max_seq=f32[1] + 1)
+        one_d, one_cache = forward_decode(c32, full, toks[:, 0], one_cache, f32[1])
+    axes = axes_for_mesh(mesh)
+    lspec = P(mesh.dp_axes if toks.shape[0] % dp == 0 else None, mesh.model_axis)
+    cspecs = lm_cache_specs(c32, axes, toks.shape[0], mesh)
+    out["f32"] = {
+        "logits_rel": max(_max_rel(lg, local_shard(one_lg, lspec, mesh.shape, coords)),
+                          _max_rel(d_lg, local_shard(one_d, lspec, mesh.shape, coords))),
+        "cache_rel": max(_max_rel(c, local_shard(w, s, mesh.shape, coords)) for c, w, s in
+                         zip(flatten(cache)[0], flatten(one_cache)[0], flatten(cspecs)[0])),
+        "s": time.perf_counter() - t_f32}
+    return out
+
+
+def rowwise_params(R, init, cfg, seed, dev, block=None):
+    """The registry's serving copy of a recsys model (big tables bf16, the
+    rest f32), drawn so that a rank draws its rows alone: each big table in
+    chunks of ``TP_TABLE_CHUNK`` rows, each from a seed of its own, N(0,
+    0.01^2); every other 2-D leaf N(0, 1/rows) from its own seed; vectors
+    ones (``ln*``) or zeros.  ``block(path, rows) -> (lo, hi)``: the rows of
+    a big table to draw (default all)."""
+    from repro_torch.train.tree import flatten, unflatten
+
+    like = init(cfg, None, device="meta")
+    shapes, paths = flatten(like)
+    leaves = []
+    for i, (ab, path) in enumerate(zip(shapes, paths)):
+        gen = torch.Generator(device=dev)
+        if ab.dim() == 2 and ab.shape[0] >= R.LARGE_TABLE_ROWS:
+            lo, hi = block(path, ab.shape[0]) if block else (0, ab.shape[0])
+            t = torch.empty((hi - lo, ab.shape[1]), dtype=torch.bfloat16, device=dev)
+            for c in range(lo // TP_TABLE_CHUNK, -(-hi // TP_TABLE_CHUNK)):
+                c0, c1 = c * TP_TABLE_CHUNK, min((c + 1) * TP_TABLE_CHUNK, ab.shape[0])
+                gen.manual_seed(seed * 1_000_003 + i * 10_007 + c)
+                chunk = torch.empty((c1 - c0, ab.shape[1]), dtype=torch.bfloat16, device=dev)
+                chunk.normal_(0.0, 0.01, generator=gen)
+                a, b = max(lo, c0), min(hi, c1)
+                t[a - lo:b - lo] = chunk[a - c0:b - c0]
+        elif ab.dim() == 2:
+            gen.manual_seed(seed * 1_000_003 + i * 10_007)
+            t = torch.empty(tuple(ab.shape), dtype=torch.float32, device=dev)
+            t.normal_(0.0, ab.shape[0] ** -0.5, generator=gen)
+        else:
+            fill = 1.0 if str(path[-1]).startswith("ln") else 0.0
+            t = torch.full(tuple(ab.shape), fill, dtype=torch.float32, device=dev)
+        leaves.append(t)
+    return unflatten(like, leaves)
+
+
+def tp_rank_recsys(mesh, configs, serve, want, batches, seed):
+    """(c) on one rank: each model's ``serve_*`` cells of the registry on
+    this rank mesh (big tables row-sharded over ``model``), the rank's rows
+    drawn alone, the batches of the ``.npz`` at ``batches`` scored through
+    the cell's step and held to the one-rank scores ``want`` bit for bit;
+    embedding-bag launches and bytes sent a call, the first call's ms and
+    the median of ``TP_RECSYS_REPS`` more."""
+    from repro_torch.configs.registry import RECSYS, build_cell, get_arch_module
+    from repro_torch.dist.sharding import local_shard, spec_dims
+    from repro_torch.kernels.embedding_bag import embedding_bag as eb
+    from repro_torch.models import recsys as R
+    from repro_torch.train.tree import flatten
+
+    dev = mesh.device
+    cuda = torch.device(dev).type == "cuda"
+    data = np.load(batches)
+    out = {"rank": mesh.rank}
+    eb.launches = 0  # the row-sharded serving path starts here
+    for arch, cfg in configs.items():
+        free_device_memory()
+        mod = get_arch_module(arch)
+        published, mod.config = mod.config, lambda cfg=cfg: cfg  # the cells of ``cfg``
+        try:
+            cells = {shape: build_cell(arch, shape, mesh=mesh) for shape in serve}
+        finally:
+            mod.config = published
+        leaves, paths = flatten(cells[next(iter(serve))].in_specs[0])
+        specs = dict(zip(paths, leaves))
+        tp, r = mesh.group_size("model"), mesh.group_rank("model")
+
+        def block(path, rows, specs=specs):
+            if spec_dims(specs[path], 2, mesh)[0] != 0:
+                return 0, rows
+            return r * rows // tp, (r + 1) * rows // tp
+
+        t0 = time.perf_counter()
+        params = rowwise_params(R, RECSYS[arch][0], cfg, seed, dev, block)
+        _sync(dev)
+        res = {"init_s": time.perf_counter() - t0,
+               "param_bytes": sum(t.numel() * t.element_size() for t in flatten(params)[0]),
+               "sharded": sorted("/".join(map(str, p)) for p, s in specs.items()
+                                 if spec_dims(s, 2, mesh)[0] == 0)}
+        coords = dict(zip(mesh.axis_names, mesh.coords))
+        for shape in serve:
+            cell = cells[shape]
+            keys = [k[0] for k in flatten(cell.abstract_args[1])[1]]
+            batch = {k: local_shard(torch.from_numpy(data[f"{arch}/{shape}/{k}"]).to(dev), s,
+                                    mesh.shape, coords)
+                     for k, s in zip(keys, flatten(cell.in_specs[1])[0])}
+            mesh.reset_traffic()
+            with torch.no_grad():
+                before = eb.launches
+                _sync(dev)
+                t0 = time.perf_counter()
+                got = cell.step_fn(params, batch)
+                _sync(dev)
+                first = (time.perf_counter() - t0) * 1e3
+                launches, sent = eb.launches - before, mesh.traffic["bytes"]
+                reps = TP_RECSYS_REPS[shape] if cuda else 0
+                ms, again = (timed_calls(lambda: cell.step_fn(params, batch), reps) if reps
+                             else (first, got))
+            w = local_shard(want[arch][shape].to(dev), cell.out_specs, mesh.shape, coords)
+            res[shape] = {"launches": launches, "first_ms": first, "ms": ms, "bytes_sent": sent,
+                          "same_bits": bool(torch.equal(got, w) and torch.equal(again, w)),
+                          "rows": int(got.shape[0])}
+        out[arch] = res
+        del params
+    out["launches"] = eb.launches
+    out["peak_gib"] = _peak_gib(dev)
+    return out
+
+
+def tp_rank_serving(mesh, serve_args, recsys_args):
+    """(b), then (c) when ``recsys_args`` is given, on one rank of the
+    (data 1, model 2) world: one spawn for both."""
+    out = {"serve": tp_rank_serve(mesh, *serve_args)}
+    if recsys_args is not None:
+        free_device_memory()
+        out["recsys"] = tp_rank_recsys(mesh, *recsys_args)
+    return out
+
+
+def phase_tp(dev, fa, eb, train_cfg=None, serve_cfg=None, train_batch=TP_TRAIN_BATCH,
+             steps=TP_TRAIN_STEPS, f32_batch=TP_F32_BATCH, prompt=TP_PREFILL,
+             decode_steps=TP_DECODE_STEPS, serve_f32=TP_SERVE_F32, recsys=None,
+             serve=RECSYS_SERVE):
+    """Phase 15: the registry's layout of the dense LM weights (``dist.tp``)
+    and of the recsys tables, run as per-rank programs on one card over gloo.
+    (a) llama3.2-3b at full width (``train_cfg``: default cut to
+    ``TP_TRAIN_LAYERS``, flash attention) on (data 2, model 2) in the
+    ``train_4k`` cell's layout: ZeRO-1 steps, then an f32 check; (b) its
+    full depth (``serve_cfg``) on (data 1, model 2): prefill and greedy
+    decode, then an f32 check; (c) the recsys models' row-sharded serving
+    (``recsys``: arch -> config, default the published ones; ``False``
+    skips it) at ``serve``'s batches, against one-rank scores.  Returns the launches of (a) and (b)'s paths and of (c)'s, and the
+    numbers.  On CPU tensors (a rehearsal) the kernels' launch checks expect
+    0."""
+    import dataclasses
+
+    from repro_torch.configs import llama3_2_3b
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.train.tree import flatten
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    runs = {"card": nvidia_smi_line()}
+    free_device_memory()
+
+    # (a) training in the train_4k cell's layout on 4 ranks
+    base = llama3_2_3b.config()
+    cfg = train_cfg or dataclasses.replace(base, n_layers=TP_TRAIN_LAYERS, attention_impl="flash")
+    per_step = 2 * cfg.n_layers if cuda else 0
+    t0 = time.perf_counter()
+    ranks = _with_segments(lambda: spawn_ranks(
+        tp_rank_train, TP_TRAIN_MESH, "gloo", dev, args=(cfg, 0, train_batch, steps, f32_batch),
+        axes=PHASE14_AXES))
+    a_s = time.perf_counter() - t0
+    for r in ranks:
+        require(r["fsdp"], ("the train_4k cell's specs put no leaf over the data axes", r["rank"]))
+        require((r["launches"], r["hopper_launches"]) == (per_step * steps,) * 2,
+                ("tp flash launches (all, Hopper) a rank", r["rank"], r["launches"],
+                 r["hopper_launches"], "steps", steps))
+        require(all(s["shapes_ok"] and s["finite"] for s in r["steps"]),
+                ("tp blocks of the cell's in_specs, finite", r["rank"]))
+        require(all(s["bytes_sent"] == r["formula_bytes"] for s in r["steps"]),
+                ("tp bytes sent against tp_train_bytes", r["rank"],
+                 [s["bytes_sent"] for s in r["steps"]], r["formula_bytes"]))
+        require(r["f32"]["loss_rel"] <= TP_F32_TOL and r["f32"]["worst_leaf_rel"] <= TP_F32_TOL,
+                ("tp f32 loss and gradient against the one-rank step", r["rank"], r["f32"]))
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    require(all([s["loss"] for s in r["steps"]] == losses for r in ranks),
+            ("tp loss differs between ranks", [[s["loss"] for s in r["steps"]] for r in ranks]))
+    last = [r["steps"][-1] for r in ranks]
+    step_s = max(s["s"] for s in last)
+    staging = max(s["staging_s"] for s in last)
+    runs["train"] = {
+        "mesh": TP_TRAIN_MESH, "layers": cfg.n_layers, "tokens_a_rank": ranks[0]["tokens"],
+        "steps": [r["steps"] for r in ranks], "step_s": step_s, "staging_s": staging,
+        "staging_share": staging / step_s, "bytes_a_rank": last[0]["bytes_sent"],
+        "formula_bytes": ranks[0]["formula_bytes"],
+        "peak_gib_a_rank": [s["peak_gib"] for s in last],
+        "param_gb_a_rank": ranks[0]["param_bytes"] / 1e9,
+        "moment_gb_a_rank": ranks[0]["moment_bytes"] / 1e9,
+        "fsdp_axes": ranks[0]["fsdp"], "f32": [r["f32"] for r in ranks], "phase_s": a_s,
+        "launches_a_rank": [r["launches"] for r in ranks]}
+    log(f"[tp] (a) {cfg.name} at d_model {cfg.d_model}, {cfg.n_layers} of {base.n_layers} "
+        f"layers, bf16, in the train_4k cell's layout (FSDP on: leaves over "
+        f"{', '.join(ranks[0]['fsdp'])}) on a (data, model) = {TP_TRAIN_MESH} mesh: "
+        f"{len(ranks)} ranks on {dev} over gloo; {ranks[0]['tokens']:,} tokens a rank a step; "
+        f"{ranks[0]['param_bytes'] / 1e9:.3f} GB of weights and "
+        f"{ranks[0]['moment_bytes'] / 1e9:.3f} GB of moments a rank; init "
+        f"{max(r['init_s'] for r in ranks):.1f} s")
+    for i in range(steps):
+        st = [r["steps"][i] for r in ranks]
+        log(f"[tp] (a) step {i + 1}: loss {st[0]['loss']:.6f} on every rank, "
+            f"{max(s['s'] for s in st):.3f} s, peak "
+            + "/".join(f"{s['peak_gib']:.2f}" for s in st) + " GiB a rank, "
+            f"{st[0]['bytes_sent']:,} bytes sent a rank in {st[0]['collectives']} collectives "
+            f"(tp_train_bytes: {ranks[0]['formula_bytes']:,})"
+            + (f", host staging {max(s['staging_s'] for s in st):.3f} s "
+               f"({max(s['staging_s'] for s in st) / max(s['s'] for s in st):.1%} of the step)"
+               if st[0]["staging_s"] is not None else " (collectives untimed)"))
+    log(f"[tp] (a) flash launches a rank over {steps} steps: "
+        + ", ".join(f"{r['launches']} ({r['hopper_launches']} Hopper)" for r in ranks)
+        + f" = {per_step} a step; f32 at {f32_batch} a shard, TF32 off: loss "
+        f"{max(r['f32']['loss_rel'] for r in ranks):.2e} from the one-rank forward_train's, "
+        f"gradient leaves within {max(r['f32']['worst_leaf_rel'] for r in ranks):.2e} of "
+        f"their max (tolerance {TP_F32_TOL}); {a_s:.1f} s")
+
+    # (c)'s one-rank scores first (DLRM's 48 GB table whole on the card), its
+    # batches to a file the ranks read
+    tmp = tempfile.TemporaryDirectory()
+    recsys_args = None
+    if recsys is not False:
+        from repro_torch.configs.registry import RECSYS, get_arch_module
+        from repro_torch.models import recsys as R
+
+        configs = recsys or {a: get_arch_module(a).config() for a in RECSYS_ARCHS}
+        t0 = time.perf_counter()
+        want, one, arrays = {}, {}, {}
+        for arch, cfg in configs.items():
+            free_device_memory()
+            params = rowwise_params(R, RECSYS[arch][0], cfg, 0, dev)
+            want[arch] = {}
+            for shape, B in serve.items():
+                b = recsys_batch(arch, cfg, B, seed=1)
+                arrays.update({f"{arch}/{shape}/{k}": v for k, v in b.items()})
+                b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                with torch.no_grad():
+                    want[arch][shape] = recsys_score(R, arch, cfg, params, b).cpu()
+            one[arch] = sum(t.numel() * t.element_size() for t in flatten(params)[0])
+            del params, b
+        free_device_memory()
+        path = os.path.join(tmp.name, "batches.npz")
+        np.savez(path, **arrays)
+        one_s = time.perf_counter() - t0
+        recsys_args = (configs, serve, want, path, 0)
+
+    # (b) prefill and greedy decode at full depth, then (c), on 2 ranks
+    cfg = serve_cfg or dataclasses.replace(base, attention_impl="flash")
+    t0 = time.perf_counter()
+    with tmp:
+        both = _with_segments(lambda: spawn_ranks(
+            tp_rank_serving, TP_SERVE_MESH, "gloo", dev,
+            args=((cfg, 0, prompt, decode_steps, serve_f32), recsys_args), axes=PHASE14_AXES))
+    bc_s = time.perf_counter() - t0
+    ranks = [r["serve"] for r in both]
+    per_prefill = cfg.n_layers if cuda else 0
+    for r in ranks:
+        require((r["prefill_launches"], r["prefill_hopper"]) == (per_prefill,) * 2,
+                ("tp prefill flash launches a rank", r["rank"], r["prefill_launches"],
+                 r["prefill_hopper"]))
+        require(r["decode_launches"] == 0, ("tp decode flash launches", r["decode_launches"]))
+        require(r["finite"] and r["picked"] == ranks[0]["picked"],
+                ("tp decode: finite, the same tokens on every rank", r["rank"]))
+        require(r["f32"]["logits_rel"] <= TP_SERVE_TOL and r["f32"]["cache_rel"] <= TP_SERVE_TOL,
+                ("tp f32 prefill/decode against the one-rank ones", r["rank"], r["f32"]))
+    dec = [float(np.median(r["decode_s"][1:])) for r in ranks]
+    runs["serve"] = {"mesh": TP_SERVE_MESH, "layers": cfg.n_layers, "prompt": prompt,
+                     "prefill_s": max(r["prefill_s"] for r in ranks),
+                     "prefill_bytes_a_rank": ranks[0]["prefill_bytes"],
+                     "decode_s": [r["decode_s"] for r in ranks], "decode_median_s": max(dec),
+                     "peak_gib_a_rank": [r["peak_gib"] for r in ranks],
+                     "param_gb_a_rank": ranks[0]["param_bytes"] / 1e9,
+                     "cache_gb_a_rank": ranks[0]["cache_bytes"] / 1e9,
+                     "f32": [r["f32"] for r in ranks], "world_s": bc_s,
+                     "launches_a_rank": [r["prefill_launches"] for r in ranks]}
+    log(f"[tp] (b) {cfg.name}, {cfg.n_layers} layers, bf16, in the prefill_32k cell's layout on "
+        f"(data, model) = {TP_SERVE_MESH}: {ranks[0]['param_bytes'] / 1e9:.3f} GB of weights a "
+        f"rank; prefill {prompt[0]} x {prompt[1]:,} in "
+        f"{runs['serve']['prefill_s']:.3f} s ({ranks[0]['prefill_bytes']:,} bytes sent a rank), "
+        f"logits block {ranks[0]['logits_shape']}, {per_prefill} flash launches a rank (all "
+        f"Hopper); {decode_steps} greedy decode steps, median {max(dec) * 1e3:.2f} ms, no flash "
+        f"launch; peak " + "/".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB a rank; "
+        f"f32 at {serve_f32[0]} layers and {serve_f32[1]} tokens: logits within "
+        f"{max(r['f32']['logits_rel'] for r in ranks):.2e}, cache within "
+        f"{max(r['f32']['cache_rel'] for r in ranks):.2e} of the one-rank ones (tolerance "
+        f"{TP_SERVE_TOL})")
+    launches = {"flash_attention": sum(runs["train"]["launches_a_rank"])
+                + sum(runs["serve"]["launches_a_rank"])}
+
+    if recsys_args is not None:
+        ranks = [r["recsys"] for r in both]
+        for r in ranks:
+            for arch in configs:
+                require(r[arch]["sharded"], (arch, "no table row-sharded"))
+                for shape in serve:
+                    got = r[arch][shape]
+                    lookups = RECSYS_LOOKUPS[(arch, "score")] if cuda else 0
+                    require(got["same_bits"], (arch, shape, "row-sharded scores differ from the "
+                                               "one-rank ones", r["rank"]))
+                    require(got["launches"] == lookups,
+                            (arch, shape, "embedding-bag launches a call a rank", got["launches"]))
+        runs["recsys"] = {"mesh": TP_SERVE_MESH, "one_rank_s": one_s,
+                          "one_rank_gb": {a: v / 1e9 for a, v in one.items()},
+                          "ranks": ranks}
+        for arch in configs:
+            r0 = ranks[0][arch]
+            log(f"[tp] (c) {arch}: {one[arch] / 1e9:.3f} GB one rank, "
+                + "/".join(f"{r[arch]['param_bytes'] / 1e9:.3f}" for r in ranks)
+                + f" GB a rank on (data, model) = {TP_SERVE_MESH} (row-sharded: "
+                f"{', '.join(r0['sharded'])}); "
+                + "; ".join(f"{shape} B={B:,}: {max(r[arch][shape]['ms'] for r in ranks):.3f} ms a "
+                            f"call (first {max(r[arch][shape]['first_ms'] for r in ranks):.3f}), "
+                            f"{r0[shape]['bytes_sent']:,} bytes sent a rank, "
+                            f"{r0[shape]['launches']} embedding-bag launches a rank, scores bit "
+                            f"for bit the one-rank ones" for shape, B in serve.items()))
+        log(f"[tp] (c) one-rank scores and batches {one_s:.1f} s; peak "
+            + "/".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB a rank")
+        launches["embedding_bag"] = sum(r["launches"] for r in ranks)
+    log(f"[tp] (b) and (c) on {TP_SERVE_MESH}: {bc_s:.1f} s")
+
+    runs["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase body {runs['phase_s']:.1f} s; {nvidia_smi_line()}")
+    return launches, runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU",
@@ -5725,12 +6277,17 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["multirank"], multirank_runs = phase_multirank(dev, flash_attention)
     log(f"[multirank] phase {time.perf_counter() - t0:.1f} s")
+    free_device_memory()
+    t0 = time.perf_counter()
+    paths["tp"], tp_runs = phase_tp(dev, flash_attention, embedding_bag)
+    log(f"[tp] phase {time.perf_counter() - t0:.1f} s")
     log("[lm] runs " + json.dumps(lm_runs))
     log("[train] runs " + json.dumps(train_runs))
     log("[llama4] runs " + json.dumps(l4_runs))
     log("[recsys] runs " + json.dumps(recsys_runs))
     log("[nequip] runs " + json.dumps(nequip_runs))
     log("[multirank] runs " + json.dumps(multirank_runs))
+    log("[tp] runs " + json.dumps(tp_runs))
     for r in records:
         # each kernel's launches on the paths that run it, each path counted
         # from 0 just before it ran

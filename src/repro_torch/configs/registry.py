@@ -16,20 +16,28 @@ The mesh (``mesh=``, default the (1, 1) host mesh) is a ``launch.mesh
 .Mesh`` or a ``RankMesh``.  On one rank every cell keeps its one-card
 layout and step.  On more than one:
 
-* an LM train cell's step is the expert-parallel one (``dist.step
-  .ep_train_step``, ``ep_mesh`` set as the reference's, with its
-  ``ep_fsdp``): it takes this rank's blocks in ``ep_param_specs``' layout
-  and its data shard;
+* an LM cell runs in the layout of its own ``in_specs`` (a
+  ``dist.tp.Layout`` threaded through ``models.transformer``'s forward):
+  the train step takes this rank's parameter blocks (tensor-parallel over
+  ``model``, over the data axes too where FSDP is on), its moment blocks
+  (ZeRO-1) and its data shard, the experts of an MoE model through the
+  expert exchange (``dist.step.tp_train_step``); prefill and decode take the rank's parameter blocks,
+  batch rows and cache block and return its block of the logits;
+* a recsys cell runs on this rank's rows of every table its specs
+  row-shard over ``model`` (``models.recsys.RowBlock``: a lookup masks the
+  ids outside the block and sums over ``model``; a retrieval's candidates,
+  sharded over every axis, gather the group's ids and reduce-scatter the
+  rows back) and on its batch rows; the train step reduces the gradient
+  over ``data`` into its ZeRO-1 moments (``dist.step.zero1_train_step``);
 * ``minibatch_lg`` and ``ogb_products`` take the reference's partitioned
   layout (``edge_src``, ``edge_dst``, ``export_idx``; ``node_n // 8``
   halo exports a rank) and the partitioned step on this rank's blocks;
 * these steps run on a ``RankMesh`` only (a description has no process
   groups); every other cell's step runs whole wherever it is called.
 
-The specs' tensor-parallel and FSDP placement of the dense weights is
-GSPMD's in the reference and is not run here, nor are its layout hints
-(the sequence-parallel residual, context-parallel attention, DLRM's
-candidate sharding constraint in retrieval): a per-rank program has no
+The reference's layout hints are not run (the sequence-parallel residual,
+context-parallel attention, DLRM's candidate sharding constraint in
+retrieval): they leave values unchanged, and a per-rank program has no
 global layout to hint at.
 
 A decode cell's position is a host integer in the port
@@ -276,12 +284,12 @@ def _lm_cell(arch_id, mod, shape_id, mesh, reduced):
         opt_cfg = AdamWConfig(moment_dtype=opt_dtype)
         batch_abs = {"tokens": _meta((B, S), torch.int32), "labels": _meta((B, S), torch.int32)}
 
+        ospecs = opt_state_specs(pspecs, params_abs, axes, dp_size(mesh, axes))
         if mesh.size > 1:
             def make_step():
-                from repro_torch.dist.step import ep_train_step
+                from repro_torch.dist.step import tp_train_step
 
-                return ep_train_step(dataclasses.replace(
-                    cfg, ep_mesh=mesh, ep_dp_axes=tuple(axes.dp), ep_fsdp=needs_fsdp), opt_cfg)
+                return tp_train_step(cfg, opt_cfg, mesh, pspecs, ospecs["m"])
 
             step = _on_ranks(mesh, make_step)
         else:
@@ -289,7 +297,6 @@ def _lm_cell(arch_id, mod, shape_id, mesh, reduced):
                 return tf_mod.forward_train(cfg, params, batch["tokens"], batch["labels"])
 
             step = _train_step(loss_fn, opt_cfg)
-        ospecs = opt_state_specs(pspecs, params_abs, axes, dp_size(mesh, axes))
         return CellSpec(arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
                         abstract_args=(params_abs, opt_state_shapes(params_abs, opt_cfg),
                                        batch_abs),
@@ -299,8 +306,17 @@ def _lm_cell(arch_id, mod, shape_id, mesh, reduced):
     cspecs = lm_cache_specs(cfg, axes, B, mesh)
     logits_spec = P(_maybe_axes(B, mesh, axes.dp), axes.mdl)
     if kind == "prefill":
-        def step(params, tokens):
-            return tf_mod.forward_prefill(cfg, params, tokens)
+        if mesh.size > 1:
+            def make_prefill():
+                from repro_torch.dist.tp import Layout
+
+                return lambda params, tokens: tf_mod.forward_prefill(
+                    cfg, params, tokens, layout=Layout(cfg, mesh, pspecs, params))
+
+            step = _on_ranks(mesh, make_prefill)
+        else:
+            def step(params, tokens):
+                return tf_mod.forward_prefill(cfg, params, tokens)
 
         return CellSpec(arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
                         abstract_args=(params_abs, _meta((B, S), torch.int32)),
@@ -308,9 +324,18 @@ def _lm_cell(arch_id, mod, shape_id, mesh, reduced):
                         meta=meta)
 
     # decode
-    def step(params, token, cache, t):
-        pos = S - 1 if t.is_meta else int(t)
-        return tf_mod.forward_decode(cfg, params, token, cache, pos)
+    if mesh.size > 1:
+        def make_decode():
+            from repro_torch.dist.tp import Layout
+
+            return lambda params, token, cache, t: tf_mod.forward_decode(
+                cfg, params, token, cache, int(t), layout=Layout(cfg, mesh, pspecs, params))
+
+        step = _on_ranks(mesh, make_decode)
+    else:
+        def step(params, token, cache, t):
+            pos = S - 1 if t.is_meta else int(t)
+            return tf_mod.forward_decode(cfg, params, token, cache, pos)
 
     return CellSpec(
         arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
@@ -532,12 +557,37 @@ def _recsys_cell(arch_id, mod, shape_id, mesh, reduced):
         opt_cfg = AdamWConfig()
         ospecs = opt_state_specs(pspecs, params_abs, axes, dp_size(mesh, axes))
         batch_abs = _recsys_inputs(fam, cfg, B)
+        if mesh.size > 1:
+            def make_step():
+                from repro_torch.dist.collectives import pmean
+                from repro_torch.dist.step import mean_over_data, zero1_train_step
+
+                def rank_loss(p, batch):
+                    return loss_fn(cfg, recsys_mod.row_blocks(p, pspecs, mesh), batch)
+
+                def vg(params, batch):
+                    loss, grads = value_and_grad(rank_loss, params, batch)
+                    return (pmean(loss, mesh, "data"),
+                            mean_over_data(grads, pspecs, ospecs["m"], mesh))
+
+                return zero1_train_step(vg, opt_cfg, mesh, pspecs, ospecs["m"])
+
+            step = _on_ranks(mesh, make_step)
+        else:
+            step = _train_step(lambda p, batch: loss_fn(cfg, p, batch), opt_cfg)
         return CellSpec(
-            arch=arch_id, shape=shape_id, kind=kind,
-            step_fn=_train_step(lambda p, batch: loss_fn(cfg, p, batch), opt_cfg),
+            arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
             abstract_args=(params_abs, opt_state_shapes(params_abs, opt_cfg), batch_abs),
             in_specs=(pspecs, ospecs, batch_specs(batch_abs)),
             out_specs=(pspecs, ospecs, P()), meta=meta)
+
+    def on_row_blocks(step, spread=False):
+        """``step`` on this rank's tables as ``RowBlock``s on several ranks
+        (``spread`` for a retrieval's candidates)."""
+        if mesh.size == 1:
+            return step
+        return _on_ranks(mesh, lambda: lambda params, *args: step(
+            recsys_mod.row_blocks(params, pspecs, mesh, spread), *args))
 
     if kind == "serve":
         batch_abs = _recsys_inputs(fam, cfg, B)
@@ -546,7 +596,7 @@ def _recsys_cell(arch_id, mod, shape_id, mesh, reduced):
         else:
             batch_abs.pop("label")
         return CellSpec(arch=arch_id, shape=shape_id, kind=kind,
-                        step_fn=_recsys_serve_step(fam, cfg),
+                        step_fn=on_row_blocks(_recsys_serve_step(fam, cfg)),
                         abstract_args=(params_abs, batch_abs),
                         in_specs=(pspecs, batch_specs(batch_abs)), out_specs=P(axes.dp),
                         meta=meta)
@@ -583,7 +633,8 @@ def _recsys_cell(arch_id, mod, shape_id, mesh, reduced):
                 _meta((cfg.n_sparse,), torch.int32), cand_abs)
         ispecs = (pspecs, P(), P(), cand_spec)
 
-    return CellSpec(arch=arch_id, shape=shape_id, kind=kind, step_fn=step,
+    return CellSpec(arch=arch_id, shape=shape_id, kind=kind,
+                    step_fn=on_row_blocks(step, spread=True),
                     abstract_args=args, in_specs=ispecs, out_specs=cand_spec, meta=meta)
 
 

@@ -17,6 +17,13 @@ Each is the reference's collective inside ``shard_map``:
   (``torch.distributed.nn``'s ``all_reduce`` rule), for a mean that every
   rank adds to its own loss: each rank's part then receives the mean's
   cotangent once, as the mean over ranks of those losses asks.
+* ``sum_grad``: the identity whose backward sums the cotangent over the
+  group (Megatron's *f*; ``psum`` is its *g*).  A tensor that every rank
+  of the group holds alike and feeds into its own block of a sharded
+  product receives only that block's part of its cotangent on each rank;
+  the sum makes it the whole cotangent on every rank.
+* ``pmax``: the maximum over the group, without a gradient (a
+  log-sum-exp's shift).
 
 The exchanges move bytes: a tensor travels as its uint8 view (gloo
 refuses some dtypes, int16 among them), so every dtype takes one path on
@@ -153,6 +160,17 @@ class _AllReduce(torch.autograd.Function):
         return _sum(g, ctx.mesh, ctx.role), None, None
 
 
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, role):
+        ctx.mesh, ctx.role = mesh, role
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, ctx.role), None, None
+
+
 def all_to_all(x: torch.Tensor, mesh, role: str) -> torch.Tensor:
     """Block j of ``x``'s dimension 0 (split into the group's size) goes to
     the group's rank j; block i of the result came from rank i."""
@@ -179,6 +197,36 @@ def all_reduce_mean(x: torch.Tensor, mesh, role: str) -> torch.Tensor:
     each rank's part receives the sum of every rank's cotangent of the
     mean (module docstring)."""
     return _AllReduce.apply(x, mesh, role) / mesh.group_size(role)
+
+
+def sum_grad(x: torch.Tensor, mesh, role: str) -> torch.Tensor:
+    """``x`` unchanged; its cotangent summed over the group in the
+    backward (in f32, cast back; module docstring)."""
+    return _SumGrad.apply(x, mesh, role)
+
+
+@torch.no_grad()
+def pmax(x: torch.Tensor, mesh, role: str) -> torch.Tensor:
+    """The elementwise maximum over the group, no gradient."""
+    out = x.detach().clone().contiguous()
+    n = mesh.group_size(role)
+    with _Account(mesh, _nbytes(out) * 2 * (n - 1) / n):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.groups[role])
+    return out
+
+
+@torch.no_grad()
+def reduce_scatter_(g: torch.Tensor, mesh, role: str, dim: int) -> torch.Tensor:
+    """The sum over the group of ``g``, this rank keeping its block along
+    ``dim`` (the backward of ``all_gather``, for a gradient reduced after
+    the backward)."""
+    return _reduce_scatter(g, mesh, role, dim)
+
+
+@torch.no_grad()
+def gather_(x: torch.Tensor, mesh, role: str, dim: int) -> torch.Tensor:
+    """``all_gather`` without a gradient."""
+    return _gather(x, mesh, role, dim)
 
 
 @torch.no_grad()

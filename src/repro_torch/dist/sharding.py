@@ -155,6 +155,27 @@ def spec_axes(spec) -> tuple:
                  for ax in (entry if isinstance(entry, tuple) else (entry,)))
 
 
+def spec_dims(spec, ndim: int, mesh) -> tuple:
+    """(the dimension a spec shards over ``model``, the one it shards over
+    the data axes), each None where it has none.  The data entry must name
+    every data axis of the mesh (the ``data`` group folds them all)."""
+    md = dd = None
+    for i, entry in enumerate(_norm(spec, ndim)):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if mesh.model_axis in names:
+            if len(names) != 1:
+                raise ValueError(f"spec {spec}: the model axis shares a dimension")
+            md = i
+        else:
+            if tuple(names) != tuple(mesh.dp_axes):
+                raise ValueError(f"spec {spec}: dimension {i} is over {names}, not over every "
+                                 f"data axis {mesh.dp_axes}")
+            dd = i
+    return md, dd
+
+
 def zero_spec_for(spec, shape: tuple, axes: MeshAxes, dpn: int):
     """``spec`` with the data axes on the largest still-unsharded dimension
     that the data degree ``dpn`` divides (the last of equal ones);

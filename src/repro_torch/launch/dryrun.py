@@ -28,7 +28,11 @@ splits it across, plus the live window of the analytic bytes over the
 chips.  ``needs`` is the card count those bytes need: one card where the
 one-card estimate fits, else the smaller production mesh whose per-device
 estimate fits an 80 GB card.  A cell that needs several cards is not a
-failure.
+failure.  For an LM train cell it also reports, on each production mesh,
+the bytes a rank's collectives send in one step of the layout the port
+runs there (``dist.roofline.tp_train_bytes``, a data shard of the cell's
+batch) and the roofline at that mesh's card count with them as its
+collective term.
 
 The exit code is 1 if any cell failed.  No card is needed.
 """
@@ -42,8 +46,8 @@ import time
 
 import torch
 
-from repro_torch.configs.registry import ALL_ARCHS, ARCH_SHAPES, build_cell
-from repro_torch.dist.roofline import roofline_terms
+from repro_torch.configs.registry import ALL_ARCHS, ARCH_SHAPES, build_cell, get_arch_module
+from repro_torch.dist.roofline import roofline_terms, tp_train_bytes
 from repro_torch.dist.sharding import is_spec, shard_count
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train.tree import flatten
@@ -81,6 +85,21 @@ def per_device_bytes(cell, mesh) -> dict:
 PRODUCTION_MESHES = {"16x16": False, "pod2x16x16": True}
 
 
+def collective_term(cell, mesh, reduced: bool) -> dict | None:
+    """An LM train cell (built on ``mesh``): the bytes a rank sends in one
+    step (``tp_train_bytes``) and the roofline on ``mesh.size`` cards with
+    them; None for any other cell."""
+    mod = get_arch_module(cell.arch)
+    if mod.FAMILY != "lm" or cell.kind != "train":
+        return None
+    cfg = mod.reduced_config() if reduced else mod.config()
+    B, S = cell.abstract_args[2]["tokens"].shape
+    dp = mesh.size // mesh.shape[mesh.model_axis]
+    nbytes = tp_train_bytes(cfg, mesh, cell.in_specs[0], cell.in_specs[1]["m"], (B // dp, S))
+    return {"chips": mesh.size, "bytes_a_rank": nbytes,
+            "roofline": roofline_terms(cell.meta, mesh.size, nbytes).row()}
+
+
 def run_cell(arch: str, shape: str, reduced: bool = False, verbose: bool = True) -> dict:
     """Build one cell, run its step on the meta device and report it;
     raises whatever the step raises."""
@@ -97,12 +116,12 @@ def run_cell(arch: str, shape: str, reduced: bool = False, verbose: bool = True)
     live = cell.meta["analytic_bytes"] * LIVE_WINDOW
     fits = state + live <= HBM_BYTES
     rl = roofline_terms(cell.meta, 1, 0.0)
-    production = {
-        label: per_device_bytes(
-            build_cell(arch, shape, reduced=reduced,
-                       mesh=make_production_mesh(multi_pod=multi)),
-            make_production_mesh(multi_pod=multi))
-        for label, multi in PRODUCTION_MESHES.items()}
+    production, collective = {}, {}
+    for label, multi in PRODUCTION_MESHES.items():
+        pmesh = make_production_mesh(multi_pod=multi)
+        pcell = build_cell(arch, shape, reduced=reduced, mesh=pmesh)
+        production[label] = per_device_bytes(pcell, pmesh)
+        collective[label] = collective_term(pcell, pmesh, reduced)
     if fits:
         needs = "1 card"
     else:
@@ -123,6 +142,7 @@ def run_cell(arch: str, shape: str, reduced: bool = False, verbose: bool = True)
             "fits_one_card": fits,
         },
         "production": production,
+        "collective": collective,
         "needs": needs,
         "roofline": rl.row(),
         "meta": {k: cell.meta[k] for k in ("params_total", "params_active", "tokens",

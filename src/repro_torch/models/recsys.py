@@ -33,8 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common import resolve_device
+from repro_torch.dist.collectives import gather_, psum, reduce_scatter_
+from repro_torch.dist.sharding import spec_dims
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.models.common import mlp, normal_init
+from repro_torch.train.tree import flatten, unflatten
 
 # MLPerf DLRM (Criteo 1TB) per-table row counts
 MLPERF_TABLE_SIZES = (
@@ -61,7 +64,9 @@ class _Lookup(torch.autograd.Function):
     order on the card, and f32 sums of them would drift by about 1e-6 from
     the exact one (plain ``table[ids]`` autograd's sorted f32 sums too).
     ``index_put_(accumulate=True)``, plain autograd's own, sums each row's
-    run serially and took about 1 s a SASRec training step on Zipf ids."""
+    run serially and took about 1 s a SASRec training step on Zipf ids.
+    On the card a negative id is the kernel's padding, a zero row, and
+    takes no gradient."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -76,8 +81,13 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
+        idx = ids.reshape(-1).long()
+        grad = grad.reshape(-1, ctx.table_shape[1]).double()
+        if ids.device.type == "cuda":
+            grad = torch.where((idx >= 0)[:, None], grad, 0.0)
+            idx = idx.clamp(min=0)
         g = torch.zeros(ctx.table_shape, dtype=torch.float64, device=grad.device)
-        g.index_add_(0, ids.reshape(-1).long(), grad.reshape(-1, ctx.table_shape[1]).double())
+        g.index_add_(0, idx, grad)
         return g.to(ctx.table_dtype), None
 
 
@@ -94,8 +104,67 @@ def lookup(table, ids):
     ``jnp.take``) and an id >= V raises ``IndexError``; on the card a
     negative id gives a zero row (the kernel's padding) and ids are not
     checked against V, since a check would wait on the card.  The batch
-    pipeline (``recsys_batches``) draws every id in range."""
+    pipeline (``recsys_batches``) draws every id in range.
+
+    ``table`` may be a ``RowBlock``, a rank's rows of a table row-sharded
+    over its ``model`` group (``RowBlock.lookup``)."""
+    if isinstance(table, RowBlock):
+        return table.lookup(ids)
     return _Lookup.apply(table, ids)
+
+
+class RowBlock:
+    """A rank's block of a table row-sharded over the ``model`` group of a
+    ``launch.mesh.RankMesh`` (``dist.sharding.recsys_param_specs``): rows
+    [r n, (r + 1) n) of the table, r the rank's place in the group.
+
+    ``lookup(ids)`` maps the ids outside the block to "no row" (on the
+    card -1, which the embedding-bag kernel reads as padding, a zero row:
+    the lookup stays one launch; on the CPU an explicit mask, since a
+    negative id counts from the end there, ROADMAP C12), then sums over
+    ``model``: one row and zeros, so the sharded lookup equals the whole
+    one bit for bit.  A row's gradient stays on the rank that owns it;
+    masked ids add nothing.  With ``spread`` the ids may differ between the
+    group's ranks (a retrieval's candidates, sharded over every axis): the
+    group's ids are gathered, looked up, and the rows reduce-scattered back
+    to their ranks, with no gradient (ids the same on every rank come back
+    as the psum gives them)."""
+
+    def __init__(self, table, mesh, spread: bool = False):
+        self.table, self.mesh, self.spread = table, mesh, spread
+        self.lo = mesh.group_rank("model") * table.shape[0]
+
+    @property
+    def dtype(self):
+        return self.table.dtype
+
+    def local_rows(self, ids):
+        """This block's rows at ``ids`` (global row numbers), zero rows for
+        the ids it does not hold."""
+        n = self.table.shape[0]
+        local = ids - self.lo
+        inside = (local >= 0) & (local < n)
+        if ids.device.type == "cuda":
+            return _Lookup.apply(self.table, torch.where(inside, local, -1))
+        rows = _Lookup.apply(self.table, torch.where(inside, local, 0))
+        return torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype))
+
+    def lookup(self, ids):
+        if not self.spread:
+            return psum(self.local_rows(ids), self.mesh, "model")
+        if torch.is_grad_enabled() and self.table.requires_grad:
+            raise RuntimeError("a spread lookup has no gradient; run it under no_grad")
+        flat = ids.reshape(-1)
+        rows = self.local_rows(gather_(flat, self.mesh, "model", 0))
+        return reduce_scatter_(rows, self.mesh, "model", 0).reshape(*ids.shape, -1)
+
+
+def row_blocks(params, specs, mesh, spread: bool = False):
+    """``params`` (a rank's blocks by ``specs``) with every table that its
+    spec splits over the model axis as a ``RowBlock`` of that ``spread``."""
+    return unflatten(params, [
+        RowBlock(p, mesh, spread) if spec_dims(s, p.dim(), mesh)[0] == 0 else p
+        for p, s in zip(flatten(params)[0], flatten(specs)[0])])
 
 
 def _cast(*xs):
@@ -455,13 +524,13 @@ def dlrm_retrieval(cfg, params, dense, user_sparse, cand_ids, cand_field: int = 
     The user's 25 constant rows are looked up once and only the candidate
     field's [N, D] rows per candidate.  Serving numerics: the interaction
     runs in the table dtype (bf16 in the serving copy) and the top MLP in
-    f32, as the reference's.  ``constrain`` is the reference's mesh hint
-    (a sharding constraint on the candidate rows); the port runs on one
-    device, so only ``None`` is accepted until meshes come (ROADMAP
-    A12.2b)."""
+    f32, as the reference's.  ``constrain`` is the reference's GSPMD hint
+    (a sharding constraint on the candidate rows); a per-rank program has
+    no global layout to hint at, so only ``None`` is accepted."""
     if constrain is not None:
-        raise NotImplementedError("dlrm_retrieval: a sharding constraint needs a mesh "
-                                  "(ROADMAP A12.2b); pass constrain=None")
+        raise NotImplementedError("dlrm_retrieval: a sharding constraint is a GSPMD layout "
+                                  "hint, which a per-rank program (ROADMAP A12.2b) does not "
+                                  "run; pass constrain=None")
     dev = user_sparse.device
     offsets, _ = _field_offsets(cfg.vocab_sizes, dev)
     n = cand_ids.shape[0]

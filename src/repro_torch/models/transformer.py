@@ -57,11 +57,21 @@ values unchanged: ``_seq_shard_constraint`` (the residual stream
 sequence-sharded over ``model``) and the context-parallel constraints on
 k, v and q in ``_gqa_attention``.  A per-rank program has no global
 layout to hint at, so they have no counterpart here.
+
+Placement (``layout=``, a ``dist.tp.Layout``).  The three entry points
+take where the parameters lie: by default one rank holding every leaf
+whole, where every hook of the layout is the identity.  On a rank mesh
+the same code runs the registry's placement: tensor parallelism over
+``model`` (the layout's *f* before a split product, its sum after), FSDP
+leaves gathered over ``data`` a group at a time inside the checkpoint,
+the experts over ``model`` through ``_moe_ffn_ep``, a vocab-parallel
+cross entropy, and the rank's cache block and vocab block of the logits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -70,6 +80,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import resolve_device
 from repro_torch.dist.collectives import all_gather, all_reduce_mean, all_to_all
+from repro_torch.dist.tp import Layout
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, rms_norm, swiglu
 
@@ -211,6 +222,11 @@ def _group_params(block, g: int) -> dict:
     return {name: w[g] for name, w in block.items()}
 
 
+def _group_block(params, g: int) -> dict:
+    """Group ``g``'s leaves of every sub-layer position."""
+    return {key: _group_params(b, g) for key, b in params["blocks"].items()}
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -284,22 +300,21 @@ def _attn_out(attn, wo):
     return attn.reshape(*attn.shape[:-2], H * Dh) @ wo.reshape(H * Dh, D)
 
 
-def _qkv(cfg: LMConfig, pos: int, p, x, positions):
+def _qkv(cfg: LMConfig, pos: int, p, x, positions, lay: Layout | None = None):
     """A layer's normed q [B, S, H, Dh] and k, v [B, S, K, Dh], RoPE
     applied on dense (period-1) models and on local layers (a Llama 4
-    global layer is NoPE)."""
+    global layer is NoPE).  On a ``lay`` that splits the heads: the rank's
+    query heads, and its KV heads where ``wk`` splits too, else every KV
+    head (the cache's layout)."""
+    lay = lay or Layout(cfg)
     h = rms_norm(x, p["attn_norm"])
-    q, k, v = _project(h, p["wq"]), _project(h, p["wk"]), _project(h, p["wv"])
+    hq = lay.col(pos, "wq", h)
+    hk = hq if lay.split(pos, "wk") else h
+    q, k, v = _project(hq, p["wq"]), _project(hk, p["wk"]), _project(hk, p["wv"])
     if pos in cfg.local_positions or cfg.period == 1:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
-def _dense_ffn(cfg: LMConfig, p, x):
-    """The dense FFN and its auxiliary loss (none: 0.0, the reference's
-    ``jnp.float32(0)``)."""
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+    return q, lay.kv_grad(pos, k), lay.kv_grad(pos, v)
 
 
 def moe_capacity(cfg: LMConfig, T: int, capacity_factor: float | None = None) -> int:
@@ -371,9 +386,7 @@ def _moe_ffn(cfg: LMConfig, p, x, capacity_factor: float | None = None):
     xf = x.reshape(T, D)
     if S == 1:
         r = _route(cfg, p["router"], xf, None)
-        g = F.silu(torch.matmul(xf, p["we_gate"]))                    # [E, T, F]
-        ye = torch.matmul(g * torch.matmul(xf, p["we_up"]), p["we_down"])  # [E, T, D]
-        y = ye[r.top, torch.arange(T, device=x.device)]
+        y = _every_expert(p, xf)[r.top, torch.arange(T, device=x.device)]
         aux = 0.0
     else:
         cap = moe_capacity(cfg, T, capacity_factor)
@@ -391,6 +404,25 @@ def _moe_ffn(cfg: LMConfig, p, x, capacity_factor: float | None = None):
     if cfg.moe.shared_expert:
         y = y + swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
     return y, aux
+
+
+def _every_expert(p, xf):
+    """Every expert of ``p`` (all or the rank's) on every token xf [T, D]:
+    [E, T, D]."""
+    g = F.silu(torch.matmul(xf, p["we_gate"]))                        # [E, T, F]
+    return torch.matmul(g * torch.matmul(xf, p["we_up"]), p["we_down"])
+
+
+def _moe_decode(cfg: LMConfig, lay: Layout, pos: int, p, h):
+    """The MoE FFN of one new token a sequence, h [T, D] (``_moe_ffn``'s
+    ``S == 1`` branch): every expert the rank holds, each token's chosen
+    one's row (``Layout.expert_rows``) scaled by its gate, plus the shared
+    expert."""
+    r = _route(cfg, p["router"], h, None)
+    y = lay.expert_rows(pos, _every_expert(p, h), r.top) * r.top_w[:, None].to(h.dtype)
+    if cfg.moe.shared_expert:
+        y = y + lay.mlp(pos, p, h, "ws_gate", "ws_up", "ws_down")
+    return y
 
 
 #: expert slots of one checkpointed chunk of ``_moe_ffn_ep``'s expert FFN
@@ -448,19 +480,30 @@ def _moe_ffn_ep(cfg: LMConfig, p, x, capacity_factor: float | None = None):
     return y, aux
 
 
-def _sublayer_train(cfg: LMConfig, pos: int, p, x, positions):
+def _ffn(cfg: LMConfig, lay: Layout, pos: int, p, h):
+    """The FFN over the full sequence and its auxiliary loss (a dense
+    FFN's: 0.0, the reference's ``jnp.float32(0)``).  MoE models route
+    expert-parallel over ``lay``'s mesh, or over ``cfg.ep_mesh`` where it
+    is set on one whole layout; locally otherwise."""
+    if not cfg.moe:
+        return lay.mlp(pos, p, h, "w_gate", "w_up", "w_down"), 0.0
+    if lay.mesh is None:
+        return (_moe_ffn_ep if cfg.ep_mesh is not None else _moe_ffn)(cfg, p, h)
+    y, aux = _moe_ffn_ep(lay.ep_cfg, p, h)
+    if cfg.moe.shared_expert:
+        y = y + lay.mlp(pos, p, h, "ws_gate", "ws_up", "ws_down")
+    return y, aux
+
+
+def _sublayer_train(cfg: LMConfig, pos: int, p, x, positions, lay: Layout):
     """One decoder layer over the full sequence (training, prefill): the
-    new residual stream, the FFN's auxiliary loss and the layer's (k, v).
-    Local layers attend within their chunks; MoE models route the FFN,
-    expert-parallel where ``cfg.ep_mesh`` is set."""
-    q, k, v = _qkv(cfg, pos, p, x, positions)
+    new residual stream, the FFN's auxiliary loss and the layer's (k, v)
+    in the cache's layout.  Local layers attend within their chunks."""
+    q, k, v = _qkv(cfg, pos, p, x, positions, lay)
     attend = _chunked_local_attention if pos in cfg.local_positions else _gqa_attention
-    x = x + _attn_out(attend(cfg, q, k, v), p["wo"])
-    if cfg.moe:
-        ffn = _moe_ffn_ep if cfg.ep_mesh is not None else _moe_ffn
-    else:
-        ffn = _dense_ffn
-    y, aux = ffn(cfg, p, rms_norm(x, p["ffn_norm"]))
+    attn = attend(cfg, q, lay.kv_heads(pos, k), lay.kv_heads(pos, v))
+    x = x + lay.row(pos, "wo", _attn_out(attn, p["wo"]))
+    y, aux = _ffn(cfg, lay, pos, p, rms_norm(x, p["ffn_norm"]))
     return x + y, aux, (k, v)
 
 
@@ -469,31 +512,42 @@ def _sublayer_train(cfg: LMConfig, pos: int, p, x, positions):
 # ---------------------------------------------------------------------------
 
 
-def _remat_group(cfg: LMConfig, block, x, aux):
-    """One group's sub-layers (the reference's ``_remat_group`` body): the
-    new residual stream and the auxiliary loss summed on."""
+def _remat_group(cfg: LMConfig, block, x, aux, lay: Layout | None = None):
+    """One group's sub-layers (the reference's ``_remat_group`` body), its
+    FSDP leaves gathered first: the new residual stream and the auxiliary
+    loss summed on."""
+    lay = lay or Layout(cfg)
+    block = lay.gather_group(block)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for pos in range(cfg.period):
-        x, a, _ = _sublayer_train(cfg, pos, block[f"pos{pos}"], x, positions)
+        x, a, _ = _sublayer_train(cfg, pos, block[f"pos{pos}"], x, positions, lay)
         aux = aux + a
     return x, aux
 
 
-def forward_train(cfg: LMConfig, params, tokens, labels):
+def forward_train(cfg: LMConfig, params, tokens, labels, layout: Layout | None = None):
     """Mean next-token loss over [B, S] tokens: position s predicts
     ``labels[:, s + 1]``.  Each group runs under a non-reentrant
     ``checkpoint`` (only its input is saved; the backward recomputes it),
     then the final norm and ``_chunked_xent`` over the head (the tied head
-    is ``embed.T``).  Plus the reference's ``0.01 * aux / n_groups`` (0 for
-    a dense FFN)."""
+    is ``embed.T``; ``Layout.vocab_xent`` where the head is vocab-sharded).
+    Plus the reference's ``0.01 * aux / n_groups`` (0 for a dense FFN).
+
+    ``layout`` (``dist.tp.Layout``): where ``params`` lie; by default one
+    rank holding them whole.  On a rank mesh, ``params`` are the rank's
+    blocks, ``tokens`` and ``labels`` its rows, and the loss is its data
+    shard's, the same on every model rank."""
     _require_ported(cfg)
-    x = params["embed"][tokens].to(cfg.act_dtype)
+    lay = layout or Layout(cfg)
+    top = lay.gather_top(params)
+    x = lay.embed(top["embed"], tokens)
     aux = 0.0
     for g in range(cfg.n_groups):
-        block = {key: _group_params(b, g) for key, b in params["blocks"].items()}
-        x, aux = checkpoint(_remat_group, cfg, block, x, aux, use_reentrant=False)
-    x = rms_norm(x, params["final_norm"])
-    loss = _chunked_xent(cfg, x[:, :-1], _head(cfg, params), labels[:, 1:])
+        x, aux = checkpoint(_remat_group, cfg, _group_block(params, g), x, aux, lay,
+                            use_reentrant=False)
+    x = rms_norm(x, top["final_norm"])
+    xent = lay.vocab_xent if lay.vocab_sharded() else functools.partial(_chunked_xent, cfg)
+    loss = xent(x[:, :-1], _head(cfg, top), labels[:, 1:])
     return loss + 0.01 * aux / cfg.n_groups
 
 
@@ -522,67 +576,79 @@ def _chunked_xent(cfg: LMConfig, x, head, labels, chunk: int = 512):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: LMConfig, batch: int, max_seq: int, device="cuda") -> dict:
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, device="cuda",
+               layout: Layout | None = None) -> dict:
     """A zero KV cache in ``cfg.act_dtype``: ``{pos{p}: {"k", "v"}}`` of
-    [G, batch, max_seq, K, Dh]."""
+    [G, batch, max_seq, K, Dh] (K the KV heads ``layout``'s rank holds)."""
     dev = resolve_device(device)
     _require_ported(cfg)
-    shape = (cfg.n_groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {f"pos{p}": {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
-                        "v": torch.zeros(shape, dtype=cfg.act_dtype, device=dev)}
-            for p in range(cfg.period)}
+    lay = layout or Layout(cfg)
+    cache = {}
+    for p in range(cfg.period):
+        shape = (cfg.n_groups, batch, max_seq, lay.n_kv_heads(p), cfg.head_dim)
+        cache[f"pos{p}"] = {n: torch.zeros(shape, dtype=cfg.act_dtype, device=dev)
+                            for n in ("k", "v")}
+    return cache
 
 
-def forward_prefill(cfg: LMConfig, params, tokens, max_seq: int | None = None):
+def forward_prefill(cfg: LMConfig, params, tokens, max_seq: int | None = None,
+                    layout: Layout | None = None):
     """Full-sequence forward of tokens [B, S]: (last-token logits [B, V],
     KV cache).  The cache holds ``max_seq`` positions (default S); positions
-    S.. are zero, ready for ``forward_decode``."""
+    S.. are zero, ready for ``forward_decode``.  On a rank mesh's
+    ``layout``: the rank's rows, its vocab block of the logits [B, V/tp]
+    and its cache block."""
     _require_ported(cfg)
+    lay = layout or Layout(cfg)
+    lay.require_vocab_split()
     B, S = tokens.shape
-    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
-    x = params["embed"][tokens].to(cfg.act_dtype)
+    cache = init_cache(cfg, B, max_seq or S, device=tokens.device, layout=lay)
+    top = lay.gather_top(params)
+    x = lay.embed(top["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None, :]
     for g in range(cfg.n_groups):
+        block = lay.gather_group(_group_block(params, g))
         for pos in range(cfg.period):
             key = f"pos{pos}"
-            p = _group_params(params["blocks"][key], g)
-            x, _, (k, v) = _sublayer_train(cfg, pos, p, x, positions)
+            x, _, (k, v) = _sublayer_train(cfg, pos, block[key], x, positions, lay)
             cache[key]["k"][g, :, :S] = k
             cache[key]["v"][g, :, :S] = v
-    x = rms_norm(x, params["final_norm"])
-    return x[:, -1] @ _head(cfg, params), cache
+    x = rms_norm(x, top["final_norm"])
+    return x[:, -1] @ _head(cfg, top), cache
 
 
-def _sublayer_decode(cfg: LMConfig, pos: int, p, x, cache_kv, t: int):
-    """One layer, one new token.  x [B, D]; cache k/v [B, S_max, K, Dh],
-    written in place at position t."""
-    B = x.shape[0]
-    dh, K = cfg.head_dim, cfg.n_kv_heads
-    q, k, v = _qkv(cfg, pos, p, x[:, None], torch.full((1, 1), t, device=x.device))
+def _sublayer_decode(cfg: LMConfig, pos: int, p, x, cache_kv, t: int, lay: Layout):
+    """One layer, one new token.  x [B, D]; cache k/v [B, S_max, K, Dh]
+    (the rank's block), written in place at position t."""
+    B, dh = x.shape[0], cfg.head_dim
+    q, k, v = _qkv(cfg, pos, p, x[:, None], torch.full((1, 1), t, device=x.device), lay)
     ck, cv = cache_kv["k"], cache_kv["v"]
     ck[:, t] = k[:, 0].to(ck.dtype)
     cv[:, t] = v[:, 0].to(cv.dtype)
 
-    qg = q.reshape(B, K, cfg.n_heads // K, dh)
-    logits = torch.einsum("bkrd,btkd->bkrt", qg, ck).float() * (dh ** -0.5)
+    kk, vv = lay.kv_heads(pos, ck), lay.kv_heads(pos, cv)
+    H, K = q.shape[2], kk.shape[2]
+    qg = q.reshape(B, K, H // K, dh)
+    logits = torch.einsum("bkrd,btkd->bkrt", qg, kk).float() * (dh ** -0.5)
     kpos = torch.arange(ck.shape[1], device=x.device)
     valid = kpos <= t
     if pos in cfg.local_positions:  # only the current chunk's keys
         valid = valid & (kpos >= t // cfg.local_chunk * cfg.local_chunk)
     logits = torch.where(valid, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    attn = torch.einsum("bkrt,btkd->bkrd", probs, cv).reshape(B, cfg.n_heads, dh)
-    x = x + _attn_out(attn, p["wo"])
+    attn = torch.einsum("bkrt,btkd->bkrd", probs, vv).reshape(B, H, dh)
+    x = x + lay.row(pos, "wo", _attn_out(attn, p["wo"]))
     h = rms_norm(x, p["ffn_norm"])
     if cfg.moe:
-        return x + _moe_ffn(cfg, p, h[:, None])[0][:, 0]
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        return x + _moe_decode(cfg, lay, pos, p, h)
+    return x + lay.mlp(pos, p, h, "w_gate", "w_up", "w_down")
 
 
-def forward_decode(cfg: LMConfig, params, token, cache, t: int):
+def forward_decode(cfg: LMConfig, params, token, cache, t: int, layout: Layout | None = None):
     """One decode step: token [B] at position ``t``.  Returns (logits
     [B, V], cache).  The cache is updated in place (position t of every
-    layer) and returned as the same object.
+    layer) and returned as the same object.  On a rank mesh's ``layout``:
+    the rank's rows, its cache block and its vocab block of the logits.
 
     ``t`` must lie in [0, S_max), S_max being the cache's position
     dimension; otherwise ``ValueError`` is raised before any write.  The
@@ -594,11 +660,15 @@ def forward_decode(cfg: LMConfig, params, token, cache, t: int):
     if not 0 <= t < s_max:
         raise ValueError(f"{cfg.name}: decode position t={t} is outside the cache of "
                          f"{s_max} positions")
-    x = params["embed"][token].to(cfg.act_dtype)
+    lay = layout or Layout(cfg)
+    lay.require_vocab_split()
+    top = lay.gather_top(params)
+    x = lay.embed(top["embed"], token)
     for g in range(cfg.n_groups):
+        block = lay.gather_group(_group_block(params, g))
         for pos in range(cfg.period):
             key = f"pos{pos}"
             kv = {name: c[g] for name, c in cache[key].items()}
-            x = _sublayer_decode(cfg, pos, _group_params(params["blocks"][key], g), x, kv, t)
-    x = rms_norm(x, params["final_norm"])
-    return x @ _head(cfg, params), cache
+            x = _sublayer_decode(cfg, pos, block[key], x, kv, t, lay)
+    x = rms_norm(x, top["final_norm"])
+    return x @ _head(cfg, top), cache

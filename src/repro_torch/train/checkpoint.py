@@ -15,9 +15,11 @@ records (``|V2``, the bf16 bits), since numpy has no bf16 type.  The
 reference cannot cast such a leaf back (ROADMAP C8); the port restores it
 into a bf16 leaf bit for bit.
 
-Leaves are saved as whole tensors and restored onto one device
-(``device=``): the reference's mesh placement (``mesh``, ``specs``) waits
-for the port's meshes (ROADMAP A12.2, C7)."""
+Leaves are saved as whole tensors.  They restore whole onto one device
+(``device=``), or, with ``mesh`` (a ``launch.mesh.RankMesh``) and
+``specs``, as the rank's own blocks (``dist.sharding.local_shard``), the
+counterpart of the reference's ``NamedSharding`` placement: each rank
+reads its block of each leaf's file (memory-mapped) and nothing else."""
 
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.common import resolve_device
+from repro_torch.dist.sharding import local_shard
 from repro_torch.train.tree import flatten, treedef_str, unflatten
 
 MANIFEST = "manifest.json"
@@ -48,13 +51,16 @@ def _to_numpy(leaf) -> np.ndarray:
     return t.numpy()
 
 
+def _as_tensor(arr: np.ndarray) -> torch.Tensor:
+    """The array as a tensor over the same memory (bf16 records as bf16)."""
+    if arr.dtype == _BF16_RECORD:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _to_tensor(arr: np.ndarray, like, device) -> torch.Tensor:
     arr = np.array(arr, order="C")  # keeps a 0-d leaf 0-d
-    if arr.dtype == _BF16_RECORD:
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(device=device, dtype=like.dtype)
+    return _as_tensor(arr).to(device=device, dtype=like.dtype)
 
 
 def save_checkpoint(root: str, step: int, tree) -> str:
@@ -101,27 +107,42 @@ def latest_checkpoint(root: str):
     return cps[-1] if cps else None
 
 
-def restore_checkpoint(path: str, like_tree, device=None):
+def restore_checkpoint(path: str, like_tree, device=None, mesh=None, specs=None):
     """(tree, step): the checkpoint at ``path`` in the structure, shapes and
     dtypes of ``like_tree`` (tensors, ``meta`` tensors too), each leaf on
     ``device``, by default its ``like_tree`` leaf's (the card for a
-    ``meta`` leaf).  Raises ValueError where the leaf count or a shape
-    differs."""
+    ``meta`` leaf; ``mesh.device`` with a mesh).  With ``mesh`` and
+    ``specs`` (a spec tree shaped as ``like_tree``; ``like_tree`` holds the
+    global shapes) each leaf is this rank's block by its spec.  Raises
+    ValueError where the leaf count or a shape differs."""
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
     leaves, _ = flatten(like_tree)
     if manifest["n_leaves"] != len(leaves):
         raise ValueError(f"{path}: {manifest['n_leaves']} leaves, the tree has {len(leaves)}: "
                          "tree structure changed")
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore_checkpoint takes mesh and specs together")
+    if mesh is not None and device is None:
+        device = mesh.device
     fixed = None if device is None else resolve_device(device)
+    spec_leaves = flatten(specs)[0] if specs is not None else [None] * len(leaves)
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(spec_leaves)} specs for a tree of {len(leaves)} leaves")
+    coords = dict(zip(mesh.axis_names, mesh.coords)) if mesh is not None else None
     restored = []
-    for i, like in enumerate(leaves):
-        arr = np.load(os.path.join(path, _leaf_name(i)))
+    for i, (like, spec) in enumerate(zip(leaves, spec_leaves)):
+        # a rank maps the file and copies its block alone ("c": private pages)
+        arr = np.load(os.path.join(path, _leaf_name(i)), mmap_mode="c" if mesh else None)
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"{path}: leaf {i} has shape {arr.shape}, the tree's "
                              f"{tuple(like.shape)}")
         dev = fixed or (resolve_device("cuda") if like.device.type == "meta" else like.device)
-        restored.append(_to_tensor(arr, like, dev))
+        if mesh is None:
+            restored.append(_to_tensor(arr, like, dev))
+            continue
+        block = local_shard(_as_tensor(arr), spec, mesh.shape, coords)
+        restored.append(block.to(device=dev, dtype=like.dtype, copy=True))
     return unflatten(like_tree, restored), manifest["step"]
 
 

@@ -176,11 +176,12 @@ def _port_rank(mesh, path, cases):
     cell = treg.build_cell("llama4-scout-17b-a16e", "train_4k", reduced=True, mesh=mesh)
     cfg = treg.get_arch_module(cell.arch).reduced_config()
     full = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    params = shard_tree(full, ep_param_specs(full, mesh, False), mesh)
+    params = shard_tree(full, cell.in_specs[0], mesh)
     tok = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (4, 64)))
     tok = local_shard(tok, P("data", None), mesh.shape, dict(zip(AXES, mesh.coords)))
-    new, opt_state, loss = cell.step_fn(params, adamw_init(params), {"tokens": tok,
-                                                                      "labels": tok})
+    new, opt_state, loss = cell.step_fn(params, shard_tree(adamw_init(full), cell.in_specs[1],
+                                                           mesh),
+                                        {"tokens": tok, "labels": tok})
     return {"cases": out, "coll": _collective_rank(mesh),
             "cell": {"cell_loss": float(loss), "cell_step": int(opt_state["step"]),
                      "cell_shapes": [tuple(x.shape) for x in flatten(new)[0]],
@@ -315,9 +316,11 @@ def test_reference_ep_needs_auto_axes(runs):
 
 
 def test_registry_train_cell_steps_on_the_rank_mesh(runs):
-    """``build_cell`` on a rank mesh of 4 gives the expert-parallel step:
-    one AdamW step on every rank's blocks (2 of the 4 experts a layer),
-    the same finite loss everywhere."""
+    """``build_cell`` on a rank mesh of 4 gives the registry's layout, its
+    experts split over ``model`` (``dist.step.tp_train_step`` around
+    ``_moe_ffn_ep``): one AdamW step on every rank's blocks by the cell's
+    ``in_specs`` (2 of the 4 experts a layer), the same finite loss
+    everywhere."""
     port = runs[3]
     got = [r["cell"] for r in port]
     assert all(np.isfinite(g["cell_loss"]) and g["cell_loss"] == got[0]["cell_loss"]
