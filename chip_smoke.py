@@ -311,7 +311,8 @@ Phases (any failure exits non-zero; nothing is caught):
    step on the same graph and weights, 8 partitioned AdamW steps with
    finite losses, step seconds, and the halo bytes a layer beside the
    reference's |halo| x C x 13 x 4, the forward's collective bytes
-   checked against it exactly.  Every rank failure fails the run.
+   checked against it exactly, and each step's bytes a rank against
+   ``dist.roofline.gnn_bytes``.  Every rank failure fails the run.
 15. The registry's layout as per-rank programs (after phase 14, within
    150 s; ``dist.tp``, ``models.recsys.RowBlock``), ranks on ``cuda:0``
    over gloo.  (a) llama3.2-3b at full width, bf16, flash attention, cut
@@ -328,16 +329,19 @@ Phases (any failure exits non-zero; nothing is caught):
    on the same card.  (b) The same config at its full 28 layers in the
    ``prefill_32k`` cell's layout on (data 1, model 2): a 1 x 4,096 prefill
    (28 Hopper flash launches a rank) and 8 greedy decode steps (none; the
-   argmax over the gathered vocab, the same token on both ranks), then an
-   f32 prefill and decode step at 4 layers whose logits and cache blocks
-   lie within 1e-4 of the one-rank ones.  (c) FM, SASRec, AutoInt and
+   argmax over the gathered vocab, the same token on both ranks), the
+   prefill's bytes a rank equal to ``dist.roofline.tp_prefill_bytes`` and
+   each decode step's to ``tp_decode_bytes``, then an f32 prefill and
+   decode step at 4 layers whose logits and cache blocks lie within 1e-4
+   of the one-rank ones.  (c) FM, SASRec, AutoInt and
    DLRM-MLPerf at their published widths, the serving copy (bf16 tables),
    on (data 1, model 2) through the registry's ``serve_p99`` (512) and
    ``serve_bulk`` (262,144) cells: the one-rank scores first (DLRM's
    48 GB table whole), freed before the ranks start; each rank draws its
    rows of every big table alone (DLRM: 24 GB a rank, seeded by chunks of
    2^20 rows); scores bit for bit the one-rank ones, one embedding-bag
-   launch a lookup a rank.  Prints step seconds, the host-staging share,
+   launch a lookup a rank, each call's bytes a rank equal to
+   ``dist.roofline.recsys_bytes``.  Prints step seconds, the host-staging share,
    the bytes each rank sent beside the formula and peak memory a rank.
 
 Prints one JSON line of kernel records, then the ``nvidia-smi`` line, and as
@@ -5357,6 +5361,7 @@ def nequip_rank_partitioned(mesh, info, steps):
     summed gradient, then ``steps`` partitioned AdamW steps."""
     from repro_torch.configs import nequip as cfgmod
     from repro_torch.data.pipelines import random_graph
+    from repro_torch.dist.roofline import gnn_bytes
     from repro_torch.dist.sharding import P, local_shard
     from repro_torch.dist.step import partitioned_train_step, partitioned_value_and_grad
     from repro_torch.models import nequip as nq
@@ -5387,15 +5392,21 @@ def nequip_rank_partitioned(mesh, info, steps):
     opt = AdamWConfig()
     state = adamw_init(params, opt)
     step = partitioned_train_step(loss_fn, mesh, opt)
-    losses, seconds = [], []
+    whole = {k: torch.from_numpy(v) for k, v in part.items()}
+    whole["energy"] = torch.as_tensor(g["energy"])
+    formula = gnn_bytes(mesh, params, whole, {k: P() if k == "energy" else spec for k in whole})
+    losses, seconds, sent = [], [], []
     for _ in range(steps):
         _sync(dev)
+        mesh.reset_traffic()
         t0 = time.perf_counter()
         params, state, lo = step(params, state, batch)
         losses.append(float(lo))
         seconds.append(time.perf_counter() - t0)
+        sent.append(mesh.traffic["bytes"])
     return {"loss": float(loss), "grads": [x.cpu() for x in flatten(grads)[0]],
             "losses": losses, "step_seconds": seconds, "host_partition_s": host_s,
+            "step_bytes_sent": sent, "step_formula": formula,
             "nodes": batch["node_feat"].shape[0], "edges": batch["edge_src"].shape[0],
             "xmax": xmax, "forward_bytes_sent": fwd_bytes, "peak_gib": _peak_gib(dev)}
 
@@ -5609,6 +5620,13 @@ def phase_multirank(dev, fa, ep_cfg=None, steps=EP_STEPS, batch=EP_BATCH, nq_inf
         "peak_gib": [r["peak_gib"] for r in parts], "dense_s": time.perf_counter() - t0}
     require(all(r["forward_bytes_sent"] == sent for r in parts),
             ("halo bytes sent a rank", [r["forward_bytes_sent"] for r in parts], sent))
+    step_formula = parts[0]["step_formula"]
+    runs["nequip_partitioned"].update(step_bytes_sent_a_rank=[r["step_bytes_sent"] for r in parts],
+                                      step_formula=step_formula)
+    require(all(b == step_formula == r["step_formula"] for r in parts
+                for b in r["step_bytes_sent"]),
+            ("partitioned step bytes sent a rank against gnn_bytes",
+             [r["step_bytes_sent"] for r in parts], step_formula))
     log(f"[multirank] (c) nequip ({info['n_nodes']:,} nodes, {info['n_edges']:,} edges, "
         f"{info['d_feat']} features) partitioned by build_partition over {n} ranks on {dev} "
         f"over gloo: {parts[0]['nodes']:,} nodes and {parts[0]['edges']:,} edge slots a rank, "
@@ -5623,7 +5641,9 @@ def phase_multirank(dev, fa, ep_cfg=None, steps=EP_STEPS, batch=EP_BATCH, nq_inf
         + f"; median of steps 2-{nq_steps} {med:.4f} s; halo a layer after the first: "
         f"|halo| x C x 13 x 4 = {n} x {xmax:,} x {C} x 13 x 4 = {formula:,} bytes gathered "
         f"(the reference's formula), {sent:,} bytes sent a rank by the forward's collectives "
-        f"over its {L} layers (layer 0 gathers s alone); peak "
+        f"over its {L} layers (layer 0 gathers s alone), {step_formula:,} by every rank in "
+        f"each training step (gnn_bytes: the halo's gathers and their reduce-scatters, the "
+        f"energies' and the gradient's sums); peak "
         + "/".join(f"{x:.2f}" for x in runs["nequip_partitioned"]["peak_gib"]) + " GiB a rank")
     del b, params, grads
     free_device_memory()
@@ -5760,6 +5780,7 @@ def tp_rank_serve(mesh, cfg, seed, prompt, decode_steps, f32):
 
     from repro_torch.configs.registry import build_cell
     from repro_torch.dist.collectives import gather_
+    from repro_torch.dist.roofline import tp_decode_bytes, tp_prefill_bytes
     from repro_torch.dist.sharding import P, lm_cache_specs, axes_for_mesh, local_shard
     from repro_torch.dist.step import shard_tree
     from repro_torch.dist.tp import Layout
@@ -5792,20 +5813,25 @@ def tp_rank_serve(mesh, cfg, seed, prompt, decode_steps, f32):
         logits, cache = forward_prefill(cfg, params, tok, max_seq=S + decode_steps, layout=lay)
         _sync(dev)
         out.update(prefill_s=time.perf_counter() - t0, prefill_bytes=mesh.traffic["bytes"],
+                   prefill_formula=tp_prefill_bytes(cfg, mesh, pspecs, tuple(tok.shape)),
+                   decode_formula=tp_decode_bytes(cfg, mesh, pspecs, tok.shape[0]),
                    prefill_launches=fa.launches, prefill_hopper=fa.hopper_launches,
                    logits_shape=tuple(logits.shape),
                    cache_bytes=sum(c.numel() * c.element_size() for c in flatten(cache)[0]))
         fa.launches = fa.hopper_launches = 0  # decode: none expected
-        seconds, picked = [], []
+        seconds, picked, sent = [], [], []
         nxt = gather_(logits, mesh, "model", 1).argmax(-1)
         for k in range(decode_steps):
             _sync(dev)
+            mesh.reset_traffic()
             t0 = time.perf_counter()
             logits, cache = forward_decode(cfg, params, nxt, cache, S + k, layout=lay)
+            sent.append(mesh.traffic["bytes"])  # the step's, not the argmax's gather
             nxt = gather_(logits, mesh, "model", 1).argmax(-1)
             picked.append(nxt.tolist())
             seconds.append(time.perf_counter() - t0)
-        out.update(decode_s=seconds, decode_launches=fa.launches, picked=picked,
+        out.update(decode_s=seconds, decode_bytes=sent, decode_launches=fa.launches,
+                   picked=picked,
                    peak_gib=_peak_gib(dev), finite=bool(torch.isfinite(logits.float()).all()))
     del params, cache
     # the f32 check at f32[0] layers, TF32 off
@@ -5878,6 +5904,7 @@ def tp_rank_recsys(mesh, configs, serve, want, batches, seed):
     embedding-bag launches and bytes sent a call, the first call's ms and
     the median of ``TP_RECSYS_REPS`` more."""
     from repro_torch.configs.registry import RECSYS, build_cell, get_arch_module
+    from repro_torch.dist.roofline import recsys_bytes
     from repro_torch.dist.sharding import local_shard, spec_dims
     from repro_torch.kernels.embedding_bag import embedding_bag as eb
     from repro_torch.models import recsys as R
@@ -5932,7 +5959,10 @@ def tp_rank_recsys(mesh, configs, serve, want, batches, seed):
                 ms, again = (timed_calls(lambda: cell.step_fn(params, batch), reps) if reps
                              else (first, got))
             w = local_shard(want[arch][shape].to(dev), cell.out_specs, mesh.shape, coords)
+            formula = recsys_bytes("serve", cfg, mesh, cell.abstract_args[0], cell.in_specs[0],
+                                   flatten(batch)[0][0].shape[0])
             res[shape] = {"launches": launches, "first_ms": first, "ms": ms, "bytes_sent": sent,
+                          "formula": formula,
                           "same_bits": bool(torch.equal(got, w) and torch.equal(again, w)),
                           "rows": int(got.shape[0])}
         out[arch] = res
@@ -6083,6 +6113,12 @@ def phase_tp(dev, fa, eb, train_cfg=None, serve_cfg=None, train_batch=TP_TRAIN_B
                 ("tp prefill flash launches a rank", r["rank"], r["prefill_launches"],
                  r["prefill_hopper"]))
         require(r["decode_launches"] == 0, ("tp decode flash launches", r["decode_launches"]))
+        require(r["prefill_bytes"] == r["prefill_formula"],
+                ("tp prefill bytes sent against tp_prefill_bytes", r["rank"], r["prefill_bytes"],
+                 r["prefill_formula"]))
+        require(all(b == r["decode_formula"] for b in r["decode_bytes"]),
+                ("tp decode bytes sent against tp_decode_bytes", r["rank"], r["decode_bytes"],
+                 r["decode_formula"]))
         require(r["finite"] and r["picked"] == ranks[0]["picked"],
                 ("tp decode: finite, the same tokens on every rank", r["rank"]))
         require(r["f32"]["logits_rel"] <= TP_SERVE_TOL and r["f32"]["cache_rel"] <= TP_SERVE_TOL,
@@ -6091,6 +6127,9 @@ def phase_tp(dev, fa, eb, train_cfg=None, serve_cfg=None, train_batch=TP_TRAIN_B
     runs["serve"] = {"mesh": TP_SERVE_MESH, "layers": cfg.n_layers, "prompt": prompt,
                      "prefill_s": max(r["prefill_s"] for r in ranks),
                      "prefill_bytes_a_rank": ranks[0]["prefill_bytes"],
+                     "prefill_formula": ranks[0]["prefill_formula"],
+                     "decode_bytes_a_rank": [r["decode_bytes"] for r in ranks],
+                     "decode_formula": ranks[0]["decode_formula"],
                      "decode_s": [r["decode_s"] for r in ranks], "decode_median_s": max(dec),
                      "peak_gib_a_rank": [r["peak_gib"] for r in ranks],
                      "param_gb_a_rank": ranks[0]["param_bytes"] / 1e9,
@@ -6100,7 +6139,9 @@ def phase_tp(dev, fa, eb, train_cfg=None, serve_cfg=None, train_batch=TP_TRAIN_B
     log(f"[tp] (b) {cfg.name}, {cfg.n_layers} layers, bf16, in the prefill_32k cell's layout on "
         f"(data, model) = {TP_SERVE_MESH}: {ranks[0]['param_bytes'] / 1e9:.3f} GB of weights a "
         f"rank; prefill {prompt[0]} x {prompt[1]:,} in "
-        f"{runs['serve']['prefill_s']:.3f} s ({ranks[0]['prefill_bytes']:,} bytes sent a rank), "
+        f"{runs['serve']['prefill_s']:.3f} s ({ranks[0]['prefill_bytes']:,} bytes sent a rank, "
+        f"tp_prefill_bytes {ranks[0]['prefill_formula']:,}; each decode step "
+        f"{ranks[0]['decode_bytes'][0]:,}, tp_decode_bytes {ranks[0]['decode_formula']:,}), "
         f"logits block {ranks[0]['logits_shape']}, {per_prefill} flash launches a rank (all "
         f"Hopper); {decode_steps} greedy decode steps, median {max(dec) * 1e3:.2f} ms, no flash "
         f"launch; peak " + "/".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB a rank; "
@@ -6123,6 +6164,9 @@ def phase_tp(dev, fa, eb, train_cfg=None, serve_cfg=None, train_batch=TP_TRAIN_B
                                                "one-rank ones", r["rank"]))
                     require(got["launches"] == lookups,
                             (arch, shape, "embedding-bag launches a call a rank", got["launches"]))
+                    require(got["bytes_sent"] == got["formula"],
+                            (arch, shape, "bytes sent a call a rank against recsys_bytes",
+                             r["rank"], got["bytes_sent"], got["formula"]))
         runs["recsys"] = {"mesh": TP_SERVE_MESH, "one_rank_s": one_s,
                           "one_rank_gb": {a: v / 1e9 for a, v in one.items()},
                           "ranks": ranks}
@@ -6134,7 +6178,8 @@ def phase_tp(dev, fa, eb, train_cfg=None, serve_cfg=None, train_batch=TP_TRAIN_B
                 f"{', '.join(r0['sharded'])}); "
                 + "; ".join(f"{shape} B={B:,}: {max(r[arch][shape]['ms'] for r in ranks):.3f} ms a "
                             f"call (first {max(r[arch][shape]['first_ms'] for r in ranks):.3f}), "
-                            f"{r0[shape]['bytes_sent']:,} bytes sent a rank, "
+                            f"{r0[shape]['bytes_sent']:,} bytes sent a rank (recsys_bytes "
+                            f"{r0[shape]['formula']:,}), "
                             f"{r0[shape]['launches']} embedding-bag launches a rank, scores bit "
                             f"for bit the one-rank ones" for shape, B in serve.items()))
         log(f"[tp] (c) one-rank scores and batches {one_s:.1f} s; peak "

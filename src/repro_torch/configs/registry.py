@@ -32,6 +32,11 @@ layout and step.  On more than one:
 * ``minibatch_lg`` and ``ogb_products`` take the reference's partitioned
   layout (``edge_src``, ``edge_dst``, ``export_idx``; ``node_n // 8``
   halo exports a rank) and the partitioned step on this rank's blocks;
+* ``molecule``, whose specs split nodes and edges over the ranks but
+  which has no partitioned layout, gathers its blocks back into the whole
+  graph (``dist.step.unshard_tree``) and runs the dense step on every
+  rank: each holds the same loss and gradient, and no gradient is summed;
+  ``full_graph_sm`` is replicated and keeps the one-card step;
 * these steps run on a ``RankMesh`` only (a description has no process
   groups); every other cell's step runs whole wherever it is called.
 
@@ -63,6 +68,7 @@ from repro_torch.dist.sharding import (
     lm_param_specs,
     opt_state_specs,
     recsys_param_specs,
+    spec_axes,
     zero_spec_for,
 )
 from repro_torch.launch.mesh import RankMesh, make_host_mesh
@@ -439,8 +445,17 @@ def _gnn_cell(arch_id, mod, shape_id, mesh, reduced):
     def loss_fn(params, batch):
         return nequip_mod.forward_train(cfg, params, batch, G, n_edge_chunks=chunks)
 
+    step = dense = _train_step(loss_fn, opt_cfg)
+    if mesh.size > 1 and any(spec_axes(sp) for sp in bspecs.values()):
+        def make_step():
+            from repro_torch.dist.step import unshard_tree
+
+            return lambda params, opt_state, batch: dense(
+                params, opt_state, unshard_tree(batch, bspecs, mesh))
+
+        step = _on_ranks(mesh, make_step)
     return CellSpec(
-        arch=arch_id, shape=shape_id, kind="train", step_fn=_train_step(loss_fn, opt_cfg),
+        arch=arch_id, shape=shape_id, kind="train", step_fn=step,
         abstract_args=(params_abs, opt_abs, batch_abs),
         in_specs=(pspecs, ospecs, bspecs), out_specs=(pspecs, ospecs, P()), meta=meta)
 

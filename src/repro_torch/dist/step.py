@@ -79,6 +79,31 @@ def shard_tree(tree, specs, mesh):
                             for x, s in zip(flatten(tree)[0], flatten(specs)[0])])
 
 
+def _gather_role(entry, mesh) -> str:
+    """The group whose ranks split a dimension over the axes ``entry``
+    names (one axis or a tuple, in mesh order): every axis, every data
+    axis, or the model axis."""
+    names = tuple(entry) if isinstance(entry, tuple) else (entry,)
+    for role, axes in (("all", mesh.axis_names), ("data", mesh.dp_axes),
+                       ("model", (mesh.model_axis,))):
+        if names == tuple(axes):
+            return role
+    raise ValueError(f"no group of {mesh.axis_names} splits a dimension over {names}")
+
+
+def unshard_tree(tree, specs, mesh):
+    """The whole tensors from this rank's blocks of ``tree`` by ``specs``
+    (the inverse of ``shard_tree``): each sharded dimension all-gathered
+    over the group of its axes, in rank order, with no gradient."""
+    def whole(x, spec):
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                x = gather_(x, mesh, _gather_role(entry, mesh), dim)
+        return x
+
+    return unflatten(tree, [whole(x, s) for x, s in zip(flatten(tree)[0], flatten(specs)[0])])
+
+
 def _role(axes: tuple, mesh) -> str | None:
     """The group whose ranks split a leaf sharded over ``axes``."""
     if not axes:

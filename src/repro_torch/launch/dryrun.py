@@ -28,11 +28,15 @@ splits it across, plus the live window of the analytic bytes over the
 chips.  ``needs`` is the card count those bytes need: one card where the
 one-card estimate fits, else the smaller production mesh whose per-device
 estimate fits an 80 GB card.  A cell that needs several cards is not a
-failure.  For an LM train cell it also reports, on each production mesh,
-the bytes a rank's collectives send in one step of the layout the port
-runs there (``dist.roofline.tp_train_bytes``, a data shard of the cell's
-batch) and the roofline at that mesh's card count with them as its
-collective term.
+failure.  For every cell it also reports, on each production mesh, the
+bytes one rank's collectives send in one call of the per-rank program the
+port runs there, counted from the cell's shapes and specs by
+``dist.roofline`` (``collective_term``: ``tp_train_bytes``,
+``tp_prefill_bytes`` or ``tp_decode_bytes`` on the rank's rows for an LM
+cell, ``recsys_bytes`` on its requests or candidates, ``gnn_bytes``: 0
+for the replicated ``full_graph_sm``), and the roofline at that mesh's
+card count with them as its collective term.  These are the port's own
+layouts' bytes, not the reference's HLO counts.
 
 The exit code is 1 if any cell failed.  No card is needed.
 """
@@ -47,8 +51,15 @@ import time
 import torch
 
 from repro_torch.configs.registry import ALL_ARCHS, ARCH_SHAPES, build_cell, get_arch_module
-from repro_torch.dist.roofline import roofline_terms, tp_train_bytes
-from repro_torch.dist.sharding import is_spec, shard_count
+from repro_torch.dist.roofline import (
+    gnn_bytes,
+    recsys_bytes,
+    roofline_terms,
+    tp_decode_bytes,
+    tp_prefill_bytes,
+    tp_train_bytes,
+)
+from repro_torch.dist.sharding import P, is_spec, shard_count
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train.tree import flatten
 
@@ -85,17 +96,35 @@ def per_device_bytes(cell, mesh) -> dict:
 PRODUCTION_MESHES = {"16x16": False, "pod2x16x16": True}
 
 
-def collective_term(cell, mesh, reduced: bool) -> dict | None:
-    """An LM train cell (built on ``mesh``): the bytes a rank sends in one
-    step (``tp_train_bytes``) and the roofline on ``mesh.size`` cards with
-    them; None for any other cell."""
+def _rows(x, spec, mesh) -> int:
+    """A rank's share of ``x``'s leading dimension under ``spec``."""
+    return x.shape[0] // shard_count(P(spec[0]) if len(spec) else P(), mesh)
+
+
+def collective_term(cell, mesh, reduced: bool) -> dict:
+    """Any cell (built on ``mesh``): the bytes a rank sends in one call of
+    its step there (module docstring) and the roofline on ``mesh.size``
+    cards with them."""
     mod = get_arch_module(cell.arch)
-    if mod.FAMILY != "lm" or cell.kind != "train":
-        return None
-    cfg = mod.reduced_config() if reduced else mod.config()
-    B, S = cell.abstract_args[2]["tokens"].shape
-    dp = mesh.size // mesh.shape[mesh.model_axis]
-    nbytes = tp_train_bytes(cfg, mesh, cell.in_specs[0], cell.in_specs[1]["m"], (B // dp, S))
+    args, specs = cell.abstract_args, cell.in_specs
+    if mod.FAMILY == "gnn":
+        nbytes = gnn_bytes(mesh, args[0], args[2], specs[2])
+    else:
+        cfg = mod.reduced_config() if reduced else mod.config()
+        if mod.FAMILY == "recsys":
+            rows = (_rows(args[-1], specs[-1], mesh) if cell.kind == "retrieval" else
+                    _rows(*(flatten(x)[0][0] for x in (args[-1], specs[-1])), mesh))
+            nbytes = recsys_bytes(cell.kind, cfg, mesh, args[0], specs[0], rows,
+                                  specs[1]["m"] if cell.kind == "train" else None)
+        elif cell.kind == "train":
+            B, S = args[2]["tokens"].shape
+            dp = mesh.size // mesh.shape[mesh.model_axis]
+            nbytes = tp_train_bytes(cfg, mesh, specs[0], specs[1]["m"], (B // dp, S))
+        elif cell.kind == "prefill":
+            nbytes = tp_prefill_bytes(cfg, mesh, specs[0], (_rows(args[1], specs[1], mesh),
+                                                            args[1].shape[1]))
+        else:
+            nbytes = tp_decode_bytes(cfg, mesh, specs[0], _rows(args[1], specs[1], mesh))
     return {"chips": mesh.size, "bytes_a_rank": nbytes,
             "roofline": roofline_terms(cell.meta, mesh.size, nbytes).row()}
 

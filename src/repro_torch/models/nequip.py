@@ -18,9 +18,9 @@ into the receivers: one ``index_add_`` into zeros per feature order.
 ``_segment_sum`` keeps ``jax.ops.segment_sum``'s rule: an id outside
 ``[0, n)`` (negative ones too) contributes nothing.  Its row is zeroed and
 its index clamped, so no host sync and no device assert (ROADMAP C13).
-Edge *sources* are gathered with ``s[src]`` and must lie in ``[0, N)``:
-the reference clamps or wraps one that does not, the port raises on the
-CPU and trips a device assert on the card.
+Edge *sources* are gathered as the reference's gather reads them: a
+negative source counts from the end, and the result is clamped into
+``[0, N)`` (ROADMAP C18), again with no host sync and no device assert.
 
 ``_message_layer`` runs edges in ``n_edge_chunks`` chunks (the reference's
 ``lax.scan``) so that only one chunk's messages are live; each chunk's
@@ -181,8 +181,12 @@ def _segment_sum(data, ids, n: int):
 
 def _edge_messages(cfg: NequIPConfig, lp, s, v, t, src, dst, r, u, y2, n_nodes):
     """Tensor-product messages of one edge block, summed into the
-    receivers: (agg_s [N, C], agg_v [N, C, 3], agg_t [N, C, 3, 3])."""
+    receivers: (agg_s [N, C], agg_v [N, C, 3], agg_t [N, C, 3, 3]).
+    Sources are read as the reference reads them: negative ones from the
+    end, then clamped into [0, N) (module docstring)."""
     C = cfg.channels
+    N = s.shape[0]
+    src = torch.where(src < 0, src + N, src).clamp(0, N - 1)
     rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff)
     w = mlp(rbf, [lp["rad_w1"], lp["rad_w2"]], [lp["rad_b1"], lp["rad_b2"]],
             act=F.silu).reshape(-1, cfg.n_paths, C)        # [E, P, C]

@@ -131,6 +131,20 @@ def _pow2_ceil(x: int) -> int:
     return 1 if x <= 1 else 1 << (x - 1).bit_length()
 
 
+#: the least value of each endpoint knob (ROADMAP C17)
+_KNOB_FLOORS = {"max_df": 0, "k": 0, "max_buf": 1}
+
+
+def _require_knobs(**knobs) -> None:
+    """Refuse a knob below its floor (``max_df`` and ``k`` below 0,
+    ``max_buf`` below 1) with one ``ValueError`` that names it, before any
+    engine or program runs.  ``list_docs`` does not pass ``max_buf``: at 0
+    the reference answers it, and so does the port."""
+    for name, value in knobs.items():
+        if value < _KNOB_FLOORS[name]:
+            raise ValueError(f"{name} must be >= {_KNOB_FLOORS[name]}, got {value}")
+
+
 def _sorted_rows(docs):
     """Canonical listing layout: ascending doc ids, -1 padding at the end."""
     s = torch.sort(torch.where(docs < 0, BIG, docs), dim=1).values
@@ -478,6 +492,7 @@ class RetrievalService:
                          max_buf: int = 4096):
         """Array-level listing endpoint: (docs int32[B, max_df] ascending,
         -1 padded, counts int32[B]) as host arrays."""
+        _require_knobs(max_df=max_df)
         if not len(patterns):
             return np.zeros((0, max_df), np.int32), np.zeros(0, np.int32)
         pats, lens, B = self._pad_batch(patterns)
@@ -499,6 +514,7 @@ class RetrievalService:
         ``engine``: "auto" | "brute" | "ilcp" | "pdl" run the batched
         programs, "reference" (or "reference:<engine>") the per-query
         loop."""
+        _require_knobs(max_df=max_df)
         if engine.startswith("reference"):
             return self._list_docs_reference(patterns, max_df, _sub_engine(engine), max_buf)
         docs, cnt = self.list_docs_arrays(patterns, max_df, engine, max_buf)
@@ -516,6 +532,7 @@ class RetrievalService:
                     max_buf: int = 4096):
         """Array-level top-k endpoint: (docs int32[B, k] padded -1,
         tf int32[B, k]) as host arrays, ranked by (tf desc, id asc)."""
+        _require_knobs(k=k, max_buf=max_buf)
         if not len(patterns):
             return np.zeros((0, k), np.int32), np.zeros((0, k), np.int32)
         self._require_topk_index()
@@ -536,6 +553,7 @@ class RetrievalService:
     def topk(self, patterns, k: int = 10, engine: str = "auto", max_buf: int = 4096):
         """Top-k documents by term frequency: per pattern, [(doc, tf), ...];
         ``engine`` as for ``list_docs``."""
+        _require_knobs(k=k, max_buf=max_buf)
         if engine.startswith("reference"):
             return self._topk_reference(patterns, k, _sub_engine(engine), max_buf)
         docs, tfs = self.topk_arrays(patterns, k, engine, max_buf)

@@ -58,6 +58,7 @@ from repro_torch.serve.retrieval import (
     RetrievalService,
     _list_program,
     _pow2_ceil,
+    _require_knobs,
     _sorted_rows,
     _sub_engine,
     _topk_program,
@@ -306,6 +307,7 @@ class ShardedRetrievalService:
 
     def list_docs_arrays(self, patterns, max_df: int = 256, engine: str = "auto",
                          max_buf: int = 4096):
+        _require_knobs(max_df=max_df)
         if not len(patterns):
             return np.zeros((0, max_df), np.int32), np.zeros(0, np.int32)
         pats, lens, B = self._pad_batch(patterns)
@@ -323,6 +325,7 @@ class ShardedRetrievalService:
 
     def list_docs(self, patterns, max_df: int = 256, engine: str = "auto",
                   max_buf: int = 4096):
+        _require_knobs(max_df=max_df)
         if engine.startswith("reference"):
             return self._list_docs_reference(patterns, max_df, _sub_engine(engine), max_buf)
         docs, cnt = self.list_docs_arrays(patterns, max_df, engine, max_buf)
@@ -333,6 +336,7 @@ class ShardedRetrievalService:
         return min(max(sh.coll.d for sh in self.shards) + 1, max_buf)
 
     def topk_arrays(self, patterns, k: int = 10, engine: str = "auto", max_buf: int = 4096):
+        _require_knobs(k=k, max_buf=max_buf)
         if not len(patterns):
             return np.zeros((0, k), np.int32), np.zeros((0, k), np.int32)
         self._require_topk_index()
@@ -351,6 +355,7 @@ class ShardedRetrievalService:
         return faults.poison("executor:topk", (docs[:B].cpu().numpy(), tfs[:B].cpu().numpy()))
 
     def topk(self, patterns, k: int = 10, engine: str = "auto", max_buf: int = 4096):
+        _require_knobs(k=k, max_buf=max_buf)
         if engine.startswith("reference"):
             return self._topk_reference(patterns, k, _sub_engine(engine), max_buf)
         docs, tfs = self.topk_arrays(patterns, k, engine, max_buf)

@@ -47,7 +47,7 @@ import pytest
 import torch
 
 from repro_torch.configs import registry as treg
-from repro_torch.dist.roofline import tp_train_bytes
+from repro_torch.dist.roofline import tp_decode_bytes, tp_train_bytes
 from repro_torch.dist.sharding import (
     P,
     axes_for_mesh,
@@ -620,7 +620,7 @@ def test_kv_heads_of_sharded_queries():
 def test_dry_run_collective_term():
     """The dry run's collective term of an LM train cell on each production
     mesh is ``tp_train_bytes`` of a data shard of the cell's batch; a
-    serving cell has none."""
+    decode cell's is ``tp_decode_bytes`` of a rank's rows."""
     from repro_torch.dist.roofline import H100_NVLINK_BPS
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
@@ -637,4 +637,9 @@ def test_dry_run_collective_term():
         assert got["chips"] == mesh.size and got["bytes_a_rank"] == want > 0
         assert got["roofline"]["collective_s"] == want / H100_NVLINK_BPS
     served = dryrun.run_cell("smollm-135m", "decode_32k", reduced=True, verbose=False)
-    assert served["collective"] == {label: None for label in dryrun.PRODUCTION_MESHES}
+    for label, multi in dryrun.PRODUCTION_MESHES.items():
+        mesh = make_production_mesh(multi_pod=multi)
+        cell = treg.build_cell("smollm-135m", "decode_32k", reduced=True, mesh=mesh)
+        rows = 128 // (mesh.size // mesh.shape["model"])
+        want = tp_decode_bytes(_config("smollm-135m"), mesh, cell.in_specs[0], rows)
+        assert served["collective"][label]["bytes_a_rank"] == want > 0
