@@ -14,7 +14,10 @@ and output lines are the reference's, plus ``--device`` (the card unless
 
 Latency accounting is split: the first execution of each (endpoint,
 shape bucket) builds (on the card: captures) its program and is reported
-on its own line; the percentiles cover steady-state batches only.
+on its own line; the percentiles cover steady-state batches only.  Last,
+the tracer's table (``repro_torch.serve.trace``) of the timed batches:
+per span, device span or counter its records, milliseconds and self
+milliseconds a batch (a counter: its value a batch).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.data.collections import (
 from repro_torch.serve import faults
 from repro_torch.serve.retrieval import RetrievalService
 from repro_torch.serve.runtime import RuntimeConfig, ServeRuntime
+from repro_torch.serve.trace import tracer
 
 
 def main(argv=None):
@@ -84,6 +88,7 @@ def main(argv=None):
                  deadline_s=1e9)
 
     specs = faults.parse_fault_specs(args.inject) if args.inject else []
+    tracer.reset()
     lat = []
     served = 0
     with faults.inject(*specs):
@@ -104,6 +109,8 @@ def main(argv=None):
           f"deadline_miss_rate={m.deadline_miss_rate:.3f} "
           f"retries={m.retries} breaker_trips={m.breaker_trips} "
           f"reasons={dict(m.degrade_reasons)}")
+    for line in tracer.table():
+        print(line)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ import torch
 from repro_torch.common import IDX
 from repro_torch.core.csa import CSA, csa_search_planned
 from repro_torch.core.sada import SadaCount, sada_count_batch
+from repro_torch.serve.trace import stage
 
 ENGINE_EMPTY = 0
 ENGINE_BRUTE = 1
@@ -63,7 +64,8 @@ def plan_queries(
     forced_engine: torch.Tensor,     # int32[]: -1 = auto dispatch
 ) -> QueryPlan:
     """Ranges + df + occ + engine assignment.  Rows of length 0 and
-    patterns with no occurrences get ``ENGINE_EMPTY``."""
+    patterns with no occurrences get ``ENGINE_EMPTY``.  The stage ``plan``
+    of a traced program (``serve.trace``) ends here."""
     lo, hi = csa_search_planned(csa, patterns, lengths)
     hi = torch.where(lengths > 0, hi, lo)  # padding rows: empty range
     occ = hi - lo
@@ -76,6 +78,7 @@ def plan_queries(
     )
     engine = torch.where(forced_engine < 0, auto, forced_engine)
     engine = torch.where(occ > 0, engine, ENGINE_EMPTY).to(IDX)
+    stage("plan")
     return QueryPlan(lo=lo, hi=hi, occ=occ, df=df, engine=engine)
 
 

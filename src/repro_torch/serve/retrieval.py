@@ -97,6 +97,7 @@ from repro_torch.serve.planner import (
     plan_knobs,
     plan_queries,
 )
+from repro_torch.serve.trace import StageClock, stage, tracer
 from repro_torch.serve.validate import validate_service
 
 # ---------------------------------------------------------------------------
@@ -120,6 +121,10 @@ BRUTE_WINDOW_FLOOR = 32
 
 #: largest servable pattern length; longer patterns normalize to empty
 MAX_PATTERN_LEN = 4096
+
+#: the counters of a plan's rows per engine, indexed by engine code
+ENGINE_ROWS = ("service.rows.empty", "service.rows.brute", "service.rows.ilcp",
+               "service.rows.pdl")
 
 
 def _sub_engine(engine: str) -> str:
@@ -154,14 +159,18 @@ def _sorted_rows(docs):
 def _list_program(max_df, brute_win, max_buf,
                   csa, ilcp, pdl, da, sada, patterns, lengths, threshold, forced):
     """list_docs for one padded batch: plan, run every engine masked,
-    select by engine, sort the rows."""
+    select by engine, sort the rows.  Stages (``serve.trace``): plan,
+    brute, ilcp, pdl, select."""
     plan = plan_queries(csa, sada, patterns, lengths, threshold, forced)
     bl, bh = masked_ranges(plan, ENGINE_BRUTE)
     docs_b, cnt_b, _ = brute_list_csa_batch(csa, bl, bh, brute_win, max_df)
+    stage("brute")
     il, ih = masked_ranges(plan, ENGINE_ILCP)
     docs_i, cnt_i = ilcp_list_docs_da_planned(ilcp, da, il, ih, max_df)
+    stage("ilcp")
     pl, ph = masked_ranges(plan, ENGINE_PDL)
     docs_p, cnt_p = pdl_list_docs_batch(pdl, csa, pl, ph, max_df, max_buf)
+    stage("pdl")
 
     eng = plan.engine[:, None]
     docs = torch.where(eng == ENGINE_BRUTE, docs_b,
@@ -170,32 +179,40 @@ def _list_program(max_df, brute_win, max_buf,
     cnt = torch.where(plan.engine == ENGINE_BRUTE, cnt_b,
                       torch.where(plan.engine == ENGINE_ILCP, cnt_i, cnt_p))
     cnt = torch.where(plan.engine == ENGINE_EMPTY, 0, cnt).to(IDX)
-    return _sorted_rows(docs), cnt, plan
+    docs = _sorted_rows(docs)
+    stage("select")
+    return docs, cnt, plan
 
 
 def _topk_program(k, max_df, brute_win, max_buf,
                   csa, pdl_t, sada, patterns, lengths, threshold, forced):
     """topk for one padded batch: Brute-assigned queries rank their
-    sorted occ window; PDL- and ILCP-assigned ones the top-k PDL's lists."""
+    sorted occ window; PDL- and ILCP-assigned ones the top-k PDL's lists.
+    Stages: plan, brute, pdl, select."""
     plan = plan_queries(csa, sada, patterns, lengths, threshold, forced)
     bl, bh = masked_ranges(plan, ENGINE_BRUTE)
     tb_docs, tb_tf = brute_topk_batch(*brute_list_csa_batch(csa, bl, bh, brute_win, max_df), k)
+    stage("brute")
     use_pdl = (plan.engine == ENGINE_PDL) | (plan.engine == ENGINE_ILCP)
     tp_docs, tp_tf = pdl_topk_batch(pdl_t, csa, torch.where(use_pdl, plan.lo, 0),
                                     torch.where(use_pdl, plan.hi, 0), k, max_buf)
+    stage("pdl")
     is_brute = (plan.engine == ENGINE_BRUTE)[:, None]
     empty = (plan.engine == ENGINE_EMPTY)[:, None]
-    docs = torch.where(empty, -1, torch.where(is_brute, tb_docs, tp_docs))
-    tfs = torch.where(empty, 0, torch.where(is_brute, tb_tf, tp_tf))
-    return docs.to(IDX), tfs.to(IDX), plan
+    docs = torch.where(empty, -1, torch.where(is_brute, tb_docs, tp_docs)).to(IDX)
+    tfs = torch.where(empty, 0, torch.where(is_brute, tb_tf, tp_tf)).to(IDX)
+    stage("select")
+    return docs, tfs, plan
 
 
 def _tfidf_program(k, conjunctive, max_buf, csa, pdl_t, sada, patterns, lengths):
     """tfidf for one padded [Q, T, m] batch: one range search over every
-    term, then ranked-AND/OR scoring."""
+    term, then ranked-AND/OR scoring.  Stages: ranges, score."""
     ranges, valid = term_ranges_batch(csa, patterns, lengths)
-    return tfidf_topk_batch(pdl_t, csa, sada, ranges, valid, k, conjunctive,
-                            max_buf=max_buf)
+    stage("ranges")
+    out = tfidf_topk_batch(pdl_t, csa, sada, ranges, valid, k, conjunctive, max_buf=max_buf)
+    stage("score")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +235,13 @@ class Program:
     not run: the capture's own increments are undone, and each replay adds
     the launches per kernel it recorded.  A call returns the static
     outputs, which the next replay overwrites: read them first.  On CPU
-    tensors a call runs ``fn`` eagerly.  ``clock`` times the capture."""
+    tensors a call runs ``fn`` eagerly.  ``clock`` times the capture.
+
+    ``stages`` holds the stage marks of ``fn`` (``serve.trace.stage``):
+    on the card the timing events captured into the graph, which every
+    replay records again; on the CPU the host clock around each call.
+    Its ``elapsed_ms()`` is the last call's, on the card once the outputs
+    have been read back."""
 
     def __init__(self, fn, args, clock=time.perf_counter):
         self.fn = fn
@@ -227,6 +250,7 @@ class Program:
         #: launches per kernel of one replay (name -> count); seconds of
         #: the capture; bytes of the graph's private pool
         self.launches, self.capture_s, self.pool_bytes = {}, 0.0, 0
+        self.stages = StageClock(tracer, events=args[0].is_cuda)
         if args[0].is_cuda:
             self._capture(args)
 
@@ -244,7 +268,8 @@ class Program:
         try:
             with torch.cuda.graph(graph):
                 reserved = torch.cuda.memory_reserved(dev)
-                self.outputs = self.fn(*self.inputs)
+                with self.stages:
+                    self.outputs = self.fn(*self.inputs)
         finally:
             recorded = [k.launches - b for k, b in zip(COUNTED_KERNELS, before)]
             for k, b in zip(COUNTED_KERNELS, before):
@@ -256,7 +281,8 @@ class Program:
 
     def __call__(self, *args):
         if self.graph is None:
-            return self.fn(*args)
+            with self.stages:
+                return self.fn(*args)
         for static, a in zip(self.inputs, args):
             static.copy_(a)
         self.graph.replay()
@@ -437,32 +463,53 @@ class RetrievalService:
         largest occ among brute-assigned queries (from a plan pass of its
         own), clamped to [BRUTE_WINDOW_FLOOR, max_buf], grow-only per
         bucket.  Results do not depend on it: the executor masks the
-        window against each query's occ."""
+        window against each query's occ.  Traced as ``service.window``,
+        with the plan's rows per engine (``service.rows.<engine>``) and
+        the window (``service.brute_window``) as counters."""
         if self.brute_window is not None:
-            return min(self.brute_window, max_buf)
-        plan = self.plan(patterns, engine)
-        occ = plan["occ"][plan["engine"] == ENGINE_BRUTE]
-        needed = int(occ.max()) if occ.size else 0
-        win = min(max(_pow2_ceil(needed), BRUTE_WINDOW_FLOOR), max_buf)
-        key = (kind, bucket_key)
-        win = max(win, self._brute_windows.get(key, 0))
-        self._brute_windows[key] = win
+            win = min(self.brute_window, max_buf)
+        else:
+            with tracer.span("service.window"):
+                plan = self.plan(patterns, engine)
+                occ = plan["occ"][plan["engine"] == ENGINE_BRUTE]
+                needed = int(occ.max()) if occ.size else 0
+                win = min(max(_pow2_ceil(needed), BRUTE_WINDOW_FLOOR), max_buf)
+                key = (kind, bucket_key)
+                win = max(win, self._brute_windows.get(key, 0))
+                self._brute_windows[key] = win
+            rows = np.bincount(plan["engine"], minlength=len(ENGINE_ROWS))
+            for code, name in enumerate(ENGINE_ROWS):
+                tracer.count(name, int(rows[code]))
+        tracer.count("service.brute_window", win)
         return win
+
+    def _run(self, prog, args, rows: int, outputs) -> tuple:
+        """Call ``prog`` (``service.replay``: the input copies and the
+        replay, which only enqueues on the card), copy the first ``rows``
+        of each of ``outputs(result)`` to the host (``service.readback``,
+        where the host waits for the card), then record the call's stage
+        times as device spans."""
+        with tracer.span("service.replay"):
+            out = prog(*args)
+        with tracer.span("service.readback"):
+            host = tuple(x[:rows].cpu().numpy() for x in outputs(out))
+        tracer.device_stages(prog.stages)
+        return host
 
     # -- endpoints -----------------------------------------------------------
 
     def plan(self, patterns, engine: str = "auto"):
         """Query plan for a pattern batch: host arrays (lo, hi, occ, df,
         engine), trimmed to the true batch size."""
-        pats, lens, B = self._pad_batch(patterns)
-        args = (pats, lens, *self._knobs(engine))
+        with tracer.span("service.pad"):
+            pats, lens, B = self._pad_batch(patterns)
+            args = (pats, lens, *self._knobs(engine))
         faults.fire("plan")
-        prog = self._compiled("plan", (tuple(pats.shape),), self._plan_fn, args)
-        plan = prog(*args)
-        return {
-            name: getattr(plan, name)[:B].cpu().numpy()
-            for name in ("lo", "hi", "occ", "df", "engine")
-        }
+        with tracer.span("service.program"):
+            prog = self._compiled("plan", (tuple(pats.shape),), self._plan_fn, args)
+        names = ("lo", "hi", "occ", "df", "engine")
+        return dict(zip(names, self._run(prog, args, B,
+                                         lambda p: [getattr(p, n) for n in names])))
 
     def ranges(self, patterns):
         """(lo, hi, normalized pattern lengths) per pattern, host arrays."""
@@ -495,18 +542,19 @@ class RetrievalService:
         _require_knobs(max_df=max_df)
         if not len(patterns):
             return np.zeros((0, max_df), np.int32), np.zeros(0, np.int32)
-        pats, lens, B = self._pad_batch(patterns)
+        with tracer.span("service.pad"):
+            pats, lens, B = self._pad_batch(patterns)
+            args = (pats, lens, *self._knobs(engine))
         win = self._brute_window_for(
             "list", (tuple(pats.shape), max_df, max_buf), patterns, engine, max_buf
         )
-        args = (pats, lens, *self._knobs(engine))
         faults.fire("executor:list")
-        prog = self._compiled(
-            "list", (tuple(pats.shape), max_df, win, max_buf),
-            lambda: self._list_fn(max_df, win, max_buf), args,
-        )
-        docs, cnt, _ = prog(*args)
-        return faults.poison("executor:list", (docs[:B].cpu().numpy(), cnt[:B].cpu().numpy()))
+        with tracer.span("service.program"):
+            prog = self._compiled(
+                "list", (tuple(pats.shape), max_df, win, max_buf),
+                lambda: self._list_fn(max_df, win, max_buf), args,
+            )
+        return faults.poison("executor:list", self._run(prog, args, B, lambda out: out[:2]))
 
     def list_docs(self, patterns, max_df: int = 256, engine: str = "auto",
                   max_buf: int = 4096):
@@ -536,19 +584,20 @@ class RetrievalService:
         if not len(patterns):
             return np.zeros((0, k), np.int32), np.zeros((0, k), np.int32)
         self._require_topk_index()
-        pats, lens, B = self._pad_batch(patterns)
+        with tracer.span("service.pad"):
+            pats, lens, B = self._pad_batch(patterns)
+            args = (pats, lens, *self._knobs(engine))
         max_df = self._topk_max_df(max_buf)
         win = self._brute_window_for(
             "topk", (tuple(pats.shape), k, max_buf), patterns, engine, max_buf
         )
-        args = (pats, lens, *self._knobs(engine))
         faults.fire("executor:topk")
-        prog = self._compiled(
-            "topk", (tuple(pats.shape), k, max_df, win, max_buf),
-            lambda: self._topk_fn(k, max_df, win, max_buf), args,
-        )
-        docs, tfs, _ = prog(*args)
-        return faults.poison("executor:topk", (docs[:B].cpu().numpy(), tfs[:B].cpu().numpy()))
+        with tracer.span("service.program"):
+            prog = self._compiled(
+                "topk", (tuple(pats.shape), k, max_df, win, max_buf),
+                lambda: self._topk_fn(k, max_df, win, max_buf), args,
+            )
+        return faults.poison("executor:topk", self._run(prog, args, B, lambda out: out[:2]))
 
     def topk(self, patterns, k: int = 10, engine: str = "auto", max_buf: int = 4096):
         """Top-k documents by term frequency: per pattern, [(doc, tf), ...];
@@ -569,15 +618,15 @@ class RetrievalService:
         if Q == 0:
             return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
         self._require_topk_index()
-        args = self._pad_terms(queries, max_terms)
+        with tracer.span("service.pad"):
+            args = self._pad_terms(queries, max_terms)
         faults.fire("executor:tfidf")
-        prog = self._compiled(
-            "tfidf", (tuple(args[0].shape), k, conjunctive, max_buf),
-            lambda: self._tfidf_fn(k, conjunctive, max_buf), args,
-        )
-        docs, scores = prog(*args)
-        return faults.poison("executor:tfidf",
-                             (docs[:Q].cpu().numpy(), scores[:Q].cpu().numpy()))
+        with tracer.span("service.program"):
+            prog = self._compiled(
+                "tfidf", (tuple(args[0].shape), k, conjunctive, max_buf),
+                lambda: self._tfidf_fn(k, conjunctive, max_buf), args,
+            )
+        return faults.poison("executor:tfidf", self._run(prog, args, Q, lambda out: out))
 
     def tfidf(self, queries, k: int = 10, conjunctive: bool = False,
               max_terms: int = 4, max_buf: int = 2048, engine: str = "auto"):

@@ -36,6 +36,16 @@ a kernel that fails on the card surfaces as degraded answers, not as an
 error, so clean traffic must be held to zero degradation.  Clock and sleep
 are injectable; clock values and the latency EMA stay Python floats.
 
+Tracing (:mod:`repro_torch.serve.trace`, always on): each batch is one
+``runtime.batch`` span, which draws the batch id, around ``runtime.admit``
+(the requests admitted since the last batch and their summed ``submit``
+time), ``runtime.expire``, ``runtime.cut``, each full-path
+``runtime.attempt`` (with ``runtime.retries`` as a counter), each
+``runtime.degrade`` rung taken, ``runtime.check`` (payload validation),
+``runtime.format`` (rows to Python lists) and ``runtime.answer``
+(``Answer`` objects and accounting).  The tracer has its own clock; the
+injectable ``clock`` stays what the deadlines and the EMA use.
+
 Error taxonomy (see :mod:`repro_torch.errors`): ``InvalidQueryError`` and
 ``QueueFullError`` are raised from ``submit``; ``TransientExecutionError``
 (incl. ``FaultInjectedError``, ``PoisonedResultError``) is consumed by the
@@ -76,6 +86,7 @@ from repro_torch.errors import (
     QueueFullError,
 )
 from repro_torch.serve.retrieval import MAX_PATTERN_LEN
+from repro_torch.serve.trace import tracer
 
 KINDS = ("list", "topk", "count", "tfidf")
 
@@ -230,6 +241,8 @@ class ServeRuntime:
         self._sleep = sleep
         self._queue: deque[Request] = deque()
         self._next_rid = 0
+        #: requests admitted since the last batch, and their submit ns
+        self._admitted, self._admit_ns = 0, 0
         self.breaker = CircuitBreaker(
             self.config.breaker_threshold, self.config.breaker_cooldown_s,
             clock=clock,
@@ -242,6 +255,7 @@ class ServeRuntime:
         """Admit one request; returns its id.  Raises InvalidQueryError for
         structurally bad payloads and QueueFullError at capacity — the only
         two exceptions this runtime surfaces."""
+        t0 = tracer.clock()
         if kind not in KINDS:
             self.metrics.invalid += 1
             raise InvalidQueryError(f"unknown endpoint kind {kind!r}")
@@ -279,6 +293,8 @@ class ServeRuntime:
             submitted_at=now,
         ))
         self.metrics.submitted += 1
+        self._admitted += 1
+        self._admit_ns += tracer.clock() - t0
         return rid
 
     # -- batch cutting -------------------------------------------------------
@@ -334,33 +350,41 @@ class ServeRuntime:
                 pats, max_df=max_df, engine="brute" if floor else "auto",
                 max_buf=cfg.max_buf,
             )
-            self._check_docs(docs, cnt, max_df)
-            return [docs[i, : cnt[i]].tolist() for i in range(len(reqs))]
+            with tracer.span("runtime.check"):
+                self._check_docs(docs, cnt, max_df)
+            with tracer.span("runtime.format"):
+                return [docs[i, : cnt[i]].tolist() for i in range(len(reqs))]
         if kind == "topk":
             k = cfg.floor_k if floor else cfg.k
             docs, tfs = svc.topk_arrays(
                 pats, k=k, engine="brute" if floor else "auto",
                 max_buf=cfg.max_buf,
             )
-            self._check_docs(docs, None, k)
-            return [
-                [(int(d), int(t)) for d, t in zip(docs[i], tfs[i]) if d >= 0]
-                for i in range(len(reqs))
-            ]
+            with tracer.span("runtime.check"):
+                self._check_docs(docs, None, k)
+            with tracer.span("runtime.format"):
+                return [
+                    [(int(d), int(t)) for d, t in zip(docs[i], tfs[i]) if d >= 0]
+                    for i in range(len(reqs))
+                ]
         if kind == "count":
             df = np.asarray(svc.count(pats))
-            if df.size and (df.min() < 0 or df.max() > svc.coll.d):
-                raise PoisonedResultError("df outside [0, d]")
-            return [int(x) for x in df]
+            with tracer.span("runtime.check"):
+                if df.size and (df.min() < 0 or df.max() > svc.coll.d):
+                    raise PoisonedResultError("df outside [0, d]")
+            with tracer.span("runtime.format"):
+                return [int(x) for x in df]
         k = cfg.floor_k if floor else cfg.k
         docs, scores = svc.tfidf_arrays(
             pats, k=k, conjunctive=cfg.tfidf_conjunctive, max_buf=cfg.max_buf
         )
-        self._check_docs(docs, None, k)
-        return [
-            [(int(d), float(s)) for d, s in zip(docs[i], scores[i]) if d >= 0]
-            for i in range(len(reqs))
-        ]
+        with tracer.span("runtime.check"):
+            self._check_docs(docs, None, k)
+        with tracer.span("runtime.format"):
+            return [
+                [(int(d), float(s)) for d, s in zip(docs[i], scores[i]) if d >= 0]
+                for i in range(len(reqs))
+            ]
 
     def _check_docs(self, docs, cnt, max_df) -> None:
         """Serving-ABI payload validation: a poisoned sentinel or an
@@ -391,7 +415,8 @@ class ServeRuntime:
             backoff = cfg.backoff_base_s
             for attempt in range(cfg.max_retries + 1):
                 try:
-                    results = self._call(kind, reqs, "full")
+                    with tracer.span("runtime.attempt"):
+                        results = self._call(kind, reqs, "full")
                     self.breaker.record_success(key)
                     break
                 except Exception:
@@ -404,12 +429,15 @@ class ServeRuntime:
                 m.failures += 1
                 if self.breaker.record_failure(key):
                     m.breaker_trips += 1
+            if retries:
+                tracer.count("runtime.retries", retries)
             cause = "retries_exhausted"
 
         if results is None:
             for path in ("floor", "reference"):
                 try:
-                    results = self._call(kind, reqs, path)
+                    with tracer.span("runtime.degrade"):
+                        results = self._call(kind, reqs, path)
                     reason = f"{cause}:{path}"
                     break
                 except Exception:
@@ -433,21 +461,22 @@ class ServeRuntime:
                 else float((1 - _EMA_ALPHA) * prev + _EMA_ALPHA * elapsed)
             )
 
-        answers = []
-        for r, res in zip(reqs, results):
-            overrun = (
-                max(0.0, float(end - r.deadline))
-                if r.deadline is not None else 0.0
-            )
-            ans = Answer(
-                rid=r.rid, kind=kind, result=res,
-                degraded=path != "full", degrade_reason=reason,
-                deadline_missed=overrun > 0, overrun_s=overrun,
-                latency_s=float(end - r.submitted_at), retries=retries,
-                path=path,
-            )
-            self._account(ans)
-            answers.append(ans)
+        with tracer.span("runtime.answer"):
+            answers = []
+            for r, res in zip(reqs, results):
+                overrun = (
+                    max(0.0, float(end - r.deadline))
+                    if r.deadline is not None else 0.0
+                )
+                ans = Answer(
+                    rid=r.rid, kind=kind, result=res,
+                    degraded=path != "full", degrade_reason=reason,
+                    deadline_missed=overrun > 0, overrun_s=overrun,
+                    latency_s=float(end - r.submitted_at), retries=retries,
+                    path=path,
+                )
+                self._account(ans)
+                answers.append(ans)
         return answers
 
     def _account(self, ans: Answer) -> None:
@@ -486,11 +515,20 @@ class ServeRuntime:
     # -- driving -------------------------------------------------------------
 
     def step(self) -> list[Answer]:
-        """Expire overdue queued requests, then cut and execute one batch."""
-        answers = self._expire(self._clock())
-        batch = self._cut_batch(self._clock())
-        if batch:
-            answers.extend(self._execute_batch(batch))
+        """Expire overdue queued requests, then cut and execute one batch
+        (one ``runtime.batch`` span; nothing with an empty queue)."""
+        if not self._queue:
+            return []
+        with tracer.batch_span("runtime.batch"):
+            if self._admitted:
+                tracer.add("runtime.admit", self._admit_ns, self._admitted)
+                self._admitted, self._admit_ns = 0, 0
+            with tracer.span("runtime.expire"):
+                answers = self._expire(self._clock())
+            with tracer.span("runtime.cut"):
+                batch = self._cut_batch(self._clock())
+            if batch:
+                answers.extend(self._execute_batch(batch))
         return answers
 
     def run_until_idle(self) -> dict[int, Answer]:

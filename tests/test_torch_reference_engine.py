@@ -347,7 +347,7 @@ def test_serve_cli_prints_the_references_lines(monkeypatch, capsys, argv):
     """``python -m repro_torch.launch.serve --device cpu`` on a tiny corpus
     prints the reference launcher's lines: the same corpus, fingerprint
     names, space report, compile buckets and resilience counters; only the
-    timings differ."""
+    timings differ.  The tracer's table follows them."""
     monkeypatch.setattr(jlaunch, "paperlike_collections", _tiny(jcoll.SyntheticSpec))
     monkeypatch.setattr(tlaunch, "paperlike_collections", _tiny(tcoll.SyntheticSpec))
 
@@ -357,6 +357,10 @@ def test_serve_cli_prints_the_references_lines(monkeypatch, capsys, argv):
 
     want = _run_cli(ref_main, argv, capsys)
     got = _run_cli(tlaunch.main, argv + ["--device", "cpu"], capsys)
+    got, table = got[:14], got[14:]
+    assert table[0].startswith("span or counter")
+    assert {line.split()[0] for line in table[1:]} >= {"runtime.batch", "service.replay",
+                                                       "device.plan"}
     assert len(got) == len(want) == 14
     assert [_TIMES.sub("T", x) for x in got] == [_TIMES.sub("T", x) for x in want]
     assert "integrity validated: csa, da, ilcp, pdl_list, pdl_topk, sada" in got[0]
